@@ -1,1 +1,5 @@
-from nextou_tpu_torch.compat.weights import extract_network_weights, variables_to_state_dict
+from nextou_tpu_torch.compat.weights import (
+    extract_network_weights,
+    load_train_state,
+    variables_to_state_dict,
+)

@@ -15,6 +15,10 @@ stack, grapher or FFN. Layout transforms:
 - norms: scale/bias -> weight/bias, mean/var -> running_mean/running_var;
 - relative-position constants ``(N, M)`` -> ``relative_pos`` ``(1, N, M)``.
 
+:func:`load_train_state` carries a whole ``nextou_tpu`` ``TrainState`` over:
+the momentum tree of its optimizer has the parameters' structure, so the
+same mapping serves it.
+
 :func:`extract_network_weights` reads an upstream checkpoint's
 ``state_dict`` the way ``nextou_tpu/compat/torch_import.py`` does.
 """
@@ -133,6 +137,28 @@ def variables_to_state_dict(variables, spec: ModelSpec) -> dict[str, torch.Tenso
         sd[f"decoder.seg_layers.{s}.weight"] = _t(_conv_w(head["kernel"]))
         sd[f"decoder.seg_layers.{s}.bias"] = _t(head["bias"])
     return sd
+
+
+def load_train_state(state, variables, momentum, step: int, spec: ModelSpec) -> None:
+    """Load a ``nextou_tpu`` train state into the port's ``TrainState`` in
+    place, so that both take the same next step.
+
+    ``variables`` is the ``{'params', 'batch_stats', 'constants'}`` tree,
+    ``momentum`` the trace of the optimizer (a tree shaped like ``params``),
+    ``step`` the number of updates made. The generator's state is the port's
+    own and stays as it is.
+    """
+    as_params = {**variables, "params": momentum}
+    names = {name for name, _ in state.model.named_parameters()}
+    moment = {
+        k: v for k, v in variables_to_state_dict(as_params, spec).items() if k in names
+    }
+    state.load_state_dict({
+        "model": variables_to_state_dict(variables, spec),
+        "momentum": moment,
+        "step": step,
+        "generator": state.model.generator.get_state(),
+    })
 
 
 def extract_network_weights(ckpt) -> dict:

@@ -1,17 +1,31 @@
-"""Fused kNN + neighbour-max: the dispatcher, its plain version and K1.
+"""kNN + neighbour-max: the dispatcher, the four hand-written kernels and
+their plain versions.
 
 The hot op of every grapher: L2-normalize the node features, squared
 distances (+ relative-position bias), k nearest by (distance, index), and
 the per-channel max over those k rows of the raw values. MRConv needs only
 that max, since ``max_j (x_j - x_i) = (max_j x_j) - x_i``.
 
-- :func:`knn_max_neighbors_reference` is the plain PyTorch version
-  (counterpart of ``nextou_tpu/kernels/knn.py::knn_max_neighbors_reference``).
-- :func:`knn_max_cuda` launches K1, the hand-written CUDA kernel in
-  ``nextou_tpu_torch/csrc/knn_max.cu``, built with ``nvcc`` at first use.
-- :func:`knn_max_neighbors` dispatches on the tensor's device: a CPU tensor
-  goes to the plain version, a CUDA tensor to K1 or raises. There is no
-  fallback from one to the other.
+Kernels (CUDA C++ under ``nextou_tpu_torch/csrc/``, built with ``nvcc`` at
+first use, one library per source) and, beside each, its plain PyTorch
+version:
+
+- K1 :func:`knn_max_cuda` (``knn_max.cu``): the fused inference forward;
+  plain version :func:`knn_max_neighbors_reference`.
+- K2 :func:`knn_indices_cuda` (``knn_max_idx.cu``): the selection alone;
+  :func:`knn_indices_reference`.
+- K3 :func:`knn_max_idx_cuda` (``knn_max_idx.cu``): the training forward,
+  max and indices; :func:`knn_max_idx_reference`.
+- K4 :func:`knn_max_bwd_cuda` (``knn_max_bwd.cu``): the backward with
+  respect to the candidate values, deterministic;
+  :func:`knn_max_bwd_reference`.
+
+:class:`KnnMaxTrain` joins K3 and K4 into one differentiable op.
+:func:`knn_max_neighbors` dispatches on the tensor's device: a CPU tensor
+goes to the plain version (autograd differentiates it by itself), a CUDA
+tensor to K1, or to K3/K4 when a gradient is needed, or raises. There is no
+fallback from a kernel to a plain version. Each wrapper counts its launches
+in ``.launches``.
 """
 
 from __future__ import annotations
@@ -28,32 +42,111 @@ import torch
 
 from nextou_tpu_torch.core.graph import (
     batched_index_select,
-    dense_knn,
+    dense_knn_reference,
     l2_normalize,
 )
 
-_PKG = Path(__file__).resolve().parents[1]
-_SOURCE = _PKG / "csrc" / "knn_max.cu"
-# listed in .gitignore; the checkout builds its own library at first use
-_BUILD_DIR = _PKG.parent / "build" / "kernels"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_HEADER = _CSRC / "knn_select.cuh"
+# listed in .gitignore; the checkout builds its own libraries at first use
+_BUILD_DIR = _CSRC.parents[1] / "build" / "kernels"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-K_MAX = 32  # K1 keeps the running top-k in one warp's lanes
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# library -> exported function -> argument types
+_LIBRARIES = {
+    "knn_max": {"knn_max_forward": [_PTR] * 5 + [_INT] * 6 + [_PTR]},
+    "knn_max_idx": {
+        "knn_max_idx_forward": [_PTR] * 6 + [_INT] * 6 + [_PTR],
+        "knn_indices_forward": [_PTR] * 4 + [_INT] * 5 + [_PTR],
+    },
+    "knn_max_bwd": {"knn_max_backward": [_PTR] * 7 + [_INT] * 6 + [_PTR]},
+}
+K_MAX = 32  # the kernels keep the running top-k in one warp's lanes
 
 
-def coord_dtype(dtype: torch.dtype) -> torch.dtype:
-    """Dtype the normalized coordinates are selected in: bf16 for a bf16
-    model (inference), f32 for anything else (``_coord_dtype`` in the JAX
-    package, inference branch)."""
+# --- build ----------------------------------------------------------------------
+
+
+def _library_path(name: str) -> Path:
+    """Where the library of ``csrc/{name}.cu`` goes: one file per content of
+    the source, the shared header and the flags."""
+    content = (_CSRC / f"{name}.cu").read_bytes() + _HEADER.read_bytes()
+    tag = hashlib.sha256(content + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def _tmp_path(lib_path: Path) -> Path:
+    return lib_path.with_suffix(f".tmp{os.getpid()}")
+
+
+def _start_build(name: str) -> subprocess.Popen | None:
+    """Start ``nvcc`` on one source unless its library is there already."""
+    lib_path = _library_path(name)
+    if lib_path.exists():
+        return None
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError(f"csrc/{name}.cu needs nvcc to build; none found")
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [nvcc, *_NVCC_FLAGS, "-o", str(_tmp_path(lib_path)), str(_CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+
+
+def _finish_build(name: str, proc: subprocess.Popen | None) -> str:
+    lib_path = _library_path(name)
+    if proc is None:
+        return f"{lib_path.name}: cached"
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on csrc/{name}.cu:\n{log}")
+    # atomic: a concurrent build never sees half a file
+    os.replace(_tmp_path(lib_path), lib_path)
+    return log
+
+
+@functools.cache
+def _library(name: str) -> ctypes.CDLL:
+    """Build (once per source content) and load one library."""
+    _finish_build(name, _start_build(name))
+    lib = ctypes.CDLL(str(_library_path(name)))
+    for fn_name, argtypes in _LIBRARIES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build_kernels() -> dict[str, str]:
+    """Build every kernel library, one ``nvcc`` per source and all started
+    together, and load them. Returns nvcc's report per library."""
+    procs = {name: _start_build(name) for name in _LIBRARIES}
+    logs = {name: _finish_build(name, proc) for name, proc in procs.items()}
+    for name in _LIBRARIES:
+        _library(name)
+    return logs
+
+
+# --- plain versions ---------------------------------------------------------------
+
+
+def coord_dtype(dtype: torch.dtype, train: bool = False) -> torch.dtype:
+    """Dtype the normalized coordinates are selected in: f32 in a training
+    step; else bf16 for a bf16 model and f32 for anything else
+    (``_coord_dtype`` in the JAX package)."""
+    if train:
+        return torch.float32
     return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
 
 
-def _normalized(x, y):
-    cdt = coord_dtype(x.dtype)
+def _normalized(x, y, train: bool = False):
+    cdt = coord_dtype(x.dtype, train)
     xn = l2_normalize(x.float()).to(cdt)
-    yn = xn if y is None else l2_normalize(y.float()).to(cdt)
+    yn = xn if y is None or y is x else l2_normalize(y.float()).to(cdt)
     return xn, yn
 
 
@@ -62,52 +155,99 @@ def knn_max_neighbors_reference(
     k: int,
     y: torch.Tensor | None = None,
     relative_pos: torch.Tensor | None = None,
+    train: bool = False,
 ) -> torch.Tensor:
     """Plain version: normalize, distances, stable-sort top-k, gather, max.
 
     Returns ``(B, N, C)`` in the value dtype (``y``'s, else ``x``'s), like
-    the JAX reference helper.
+    the JAX reference helper. Differentiable with respect to the values; the
+    selection carries no gradient.
     """
-    xn, yn = _normalized(x, y)
-    idx = dense_knn(xn, k, y=None if y is None else yn, relative_pos=relative_pos)
+    xn, yn = _normalized(x, y, train)
+    idx = dense_knn_reference(xn, k, yn, relative_pos)
     vals = x if y is None else y
     return torch.amax(batched_index_select(vals, idx), dim=2)
 
 
-@functools.cache
-def _library() -> tuple[ctypes.CDLL, str]:
-    """Build K1 from the checkout's source (once per source content) and
-    load it. Returns the library and the compiler's report."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"libknn_max_{tag}.so"
-    log = f"{lib_path.name}: cached"
-    if not lib_path.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("K1 needs nvcc to build csrc/knn_max.cu; none found")
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
-        proc = subprocess.run(
-            [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {_SOURCE}:\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
-        log = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.knn_max_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, log
+def knn_indices_reference(
+    xn: torch.Tensor, yn: torch.Tensor, rel: torch.Tensor | None, k: int
+) -> torch.Tensor:
+    """Plain version of K2: ``(B, N, k)`` int32, nearest first, ties to the
+    lowest index, on coordinates that are normalized already."""
+    return dense_knn_reference(xn, k, yn, rel).to(torch.int32)
 
 
-def build_knn_max() -> str:
-    """Build (or find) and load K1; returns nvcc's report for the log."""
-    return _library()[1]
+def knn_max_idx_reference(
+    xn: torch.Tensor, yn: torch.Tensor, yv: torch.Tensor,
+    rel: torch.Tensor | None, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: the f32 per-channel max over the selected rows of
+    ``yv`` and the ``(B, N, k)`` int32 selection."""
+    idx = dense_knn_reference(xn, k, yn, rel)
+    maxv = torch.amax(batched_index_select(yv, idx), dim=2).float()
+    return maxv, idx.to(torch.int32)
+
+
+def knn_max_bwd_reference(
+    yv: torch.Tensor, idx: torch.Tensor, maxv: torch.Tensor, g: torch.Tensor, k: int
+) -> torch.Tensor:
+    """Plain version of K4: gather, compare with the max, count the ties,
+    ``index_add_`` of ``eq * g / cnt``. Returns ``(B, M, C)`` f32."""
+    B, M, C = yv.shape
+    N = idx.shape[1]
+    sel = batched_index_select(yv.float(), idx.long())  # (B, N, k, C)
+    eq = (sel == maxv[:, :, None, :]).float()
+    share = g.float() / eq.sum(2).clamp(min=1.0)  # (B, N, C)
+    contrib = (eq * share[:, :, None, :]).reshape(B * N * k, C)
+    rows = (idx.long() + M * torch.arange(B, device=idx.device)[:, None, None]).reshape(-1)
+    gy = torch.zeros(B * M, C, dtype=torch.float32, device=yv.device)
+    return gy.index_add_(0, rows, contrib).reshape(B, M, C)
+
+
+# --- kernel wrappers ------------------------------------------------------------
+
+
+def _check(name: str, tensors: dict, dtypes: dict, shapes: dict) -> torch.device:
+    """Raise on what a kernel does not take: every tensor on one CUDA device,
+    contiguous, of its expected dtype and shape (``None`` entries skipped)."""
+    tensors = {n: t for n, t in tensors.items() if t is not None}
+    dev = next(iter(tensors.values())).device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors.values()):
+        raise ValueError(f"{name}: every tensor must be on one CUDA device")
+    for n, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {n} must be contiguous")
+        if t.dtype not in dtypes[n]:
+            raise ValueError(f"{name}: {n} has dtype {t.dtype}, takes {dtypes[n]}")
+        if tuple(t.shape) != tuple(shapes[n]):
+            raise ValueError(f"{name}: {n} has shape {tuple(t.shape)}, takes {shapes[n]}")
+    return dev
+
+
+def _check_k(name: str, k: int, M: int):
+    if not 1 <= k <= min(K_MAX, M):
+        raise ValueError(f"{name}: k={k} outside [1, min({K_MAX}, M={M})]")
+
+
+def kernel_bias(relative_pos: torch.Tensor | None, k: int, N: int, M: int):
+    """What every kernel asks of a caller's bias and ``k``: one bias shared
+    by the batch and ``k <= min(32, M)``, else ``NotImplementedError``.
+    Returns the bias as the kernels read it: ``(N, M)`` f32, contiguous."""
+    if relative_pos is not None and relative_pos.dim() != 2:
+        raise NotImplementedError("the kernels take one (N, M) bias shared by the batch")
+    if k > min(K_MAX, M):
+        raise NotImplementedError(f"the kernels take k <= min({K_MAX}, M); got k={k}, M={M}")
+    if relative_pos is None:
+        return None
+    return relative_pos.detach().to(torch.float32).expand(N, M).contiguous()
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+_F32 = (torch.float32,)
+_VALUES = (torch.bfloat16, torch.float32)
 
 
 def knn_max_cuda(
@@ -125,28 +265,19 @@ def knn_max_cuda(
     """
     B, N, C = xn.shape
     M = yn.shape[1]
-    dev = xn.device
-    tensors = (xn, yn, yv) if rel is None else (xn, yn, yv, rel)
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("knn_max_cuda: every tensor must be on one CUDA device")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("knn_max_cuda: tensors must be contiguous")
-    if xn.dtype not in (torch.bfloat16, torch.float32) or not xn.dtype == yn.dtype == yv.dtype:
-        raise ValueError(f"knn_max_cuda: dtypes {xn.dtype}/{yn.dtype}/{yv.dtype}")
-    if yn.shape != (B, M, C) or yv.shape != (B, M, C):
-        raise ValueError(f"knn_max_cuda: shapes {xn.shape} {yn.shape} {yv.shape}")
-    if rel is not None and (rel.shape != (N, M) or rel.dtype != torch.float32):
-        raise ValueError(f"knn_max_cuda: bias {rel.shape} {rel.dtype}")
-    if not 1 <= k <= min(K_MAX, M):
-        raise ValueError(f"knn_max_cuda: k={k} outside [1, min({K_MAX}, M={M})]")
-    lib, _ = _library()
+    dev = _check(
+        "knn_max_cuda", {"xn": xn, "yn": yn, "yv": yv, "rel": rel},
+        {"xn": _VALUES, "yn": (xn.dtype,), "yv": (xn.dtype,), "rel": _F32},
+        {"xn": (B, N, C), "yn": (B, M, C), "yv": (B, M, C), "rel": (N, M)},
+    )
+    _check_k("knn_max_cuda", k, M)
+    lib = _library("knn_max")
     out = torch.empty((B, N, C), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.knn_max_forward(
-            xn.data_ptr(), yn.data_ptr(), yv.data_ptr(),
-            None if rel is None else rel.data_ptr(), out.data_ptr(),
-            B, N, M, C, k, int(xn.dtype == torch.bfloat16), stream,
+            _ptr(xn), _ptr(yn), _ptr(yv), _ptr(rel), _ptr(out),
+            B, N, M, C, k, int(xn.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"knn_max_cuda: launch failed with CUDA error {rc}")
@@ -157,11 +288,160 @@ def knn_max_cuda(
 knn_max_cuda.launches = 0
 
 
+def knn_max_idx_cuda(
+    xn: torch.Tensor,
+    yn: torch.Tensor,
+    yv: torch.Tensor,
+    rel: torch.Tensor | None,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K3 on normalized f32 coordinates ``xn (B, N, C)``,
+    ``yn (B, M, C)``, raw values ``yv (B, M, C)`` in bf16 or f32, and an
+    optional ``(N, M)`` f32 bias. Returns the max ``(B, N, C)`` f32 and the
+    selection ``(B, N, k)`` int32, nearest first.
+
+    ``knn_max_idx_cuda.launches`` counts the launches.
+    """
+    B, N, C = xn.shape
+    M = yn.shape[1]
+    dev = _check(
+        "knn_max_idx_cuda", {"xn": xn, "yn": yn, "yv": yv, "rel": rel},
+        {"xn": _F32, "yn": _F32, "yv": _VALUES, "rel": _F32},
+        {"xn": (B, N, C), "yn": (B, M, C), "yv": (B, M, C), "rel": (N, M)},
+    )
+    _check_k("knn_max_idx_cuda", k, M)
+    lib = _library("knn_max_idx")
+    out = torch.empty((B, N, C), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, N, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.knn_max_idx_forward(
+            _ptr(xn), _ptr(yn), _ptr(yv), _ptr(rel), _ptr(out), _ptr(idx),
+            B, N, M, C, k, int(yv.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"knn_max_idx_cuda: launch failed with CUDA error {rc}")
+    knn_max_idx_cuda.launches += 1
+    return out, idx
+
+
+knn_max_idx_cuda.launches = 0
+
+
+def knn_indices_cuda(
+    xn: torch.Tensor, yn: torch.Tensor, rel: torch.Tensor | None, k: int
+) -> torch.Tensor:
+    """Launch K2 on normalized f32 coordinates ``xn (B, N, C)``,
+    ``yn (B, M, C)`` and an optional ``(N, M)`` f32 bias. Returns the
+    selection ``(B, N, k)`` int32, nearest first.
+
+    ``knn_indices_cuda.launches`` counts the launches.
+    """
+    B, N, C = xn.shape
+    M = yn.shape[1]
+    dev = _check(
+        "knn_indices_cuda", {"xn": xn, "yn": yn, "rel": rel},
+        {"xn": _F32, "yn": _F32, "rel": _F32},
+        {"xn": (B, N, C), "yn": (B, M, C), "rel": (N, M)},
+    )
+    _check_k("knn_indices_cuda", k, M)
+    lib = _library("knn_max_idx")
+    idx = torch.empty((B, N, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.knn_indices_forward(
+            _ptr(xn), _ptr(yn), _ptr(rel), _ptr(idx), B, N, M, C, k,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"knn_indices_cuda: launch failed with CUDA error {rc}")
+    knn_indices_cuda.launches += 1
+    return idx
+
+
+knn_indices_cuda.launches = 0
+
+
+def knn_max_bwd_cuda(
+    yv: torch.Tensor, idx: torch.Tensor, maxv: torch.Tensor, g: torch.Tensor, k: int
+) -> torch.Tensor:
+    """Launch K4: candidate values ``yv (B, M, C)`` in bf16 or f32, the
+    forward's selection ``idx (B, N, k)`` int32 (k distinct candidates in
+    [0, M) per row), its f32 max ``maxv (B, N, C)`` and the f32 cotangent
+    ``g (B, N, C)``. Returns the gradient ``(B, M, C)`` f32. The add order is
+    fixed by ``idx``, so two runs give the same bits.
+
+    ``knn_max_bwd_cuda.launches`` counts the launches.
+    """
+    B, M, C = yv.shape
+    N = idx.shape[1]
+    dev = _check(
+        "knn_max_bwd_cuda", {"yv": yv, "idx": idx, "maxv": maxv, "g": g},
+        {"yv": _VALUES, "idx": (torch.int32,), "maxv": _F32, "g": _F32},
+        {"yv": (B, M, C), "idx": (B, N, k), "maxv": (B, N, C), "g": (B, N, C)},
+    )
+    _check_k("knn_max_bwd_cuda", k, M)
+    lib = _library("knn_max_bwd")
+    gy = torch.empty((B, M, C), dtype=torch.float32, device=dev)
+    share = torch.empty((B, N, C), dtype=torch.float32, device=dev)
+    bitmap = torch.empty((B, M, (N + 31) // 32), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.knn_max_backward(
+            _ptr(yv), _ptr(idx), _ptr(maxv), _ptr(g), _ptr(gy), _ptr(share),
+            _ptr(bitmap), B, N, M, C, k, int(yv.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"knn_max_bwd_cuda: launch failed with CUDA error {rc}")
+    knn_max_bwd_cuda.launches += 1
+    return gy
+
+
+knn_max_bwd_cuda.launches = 0
+
+
+# --- the differentiable op and the dispatcher ------------------------------------------
+
+
+class KnnMaxTrain(torch.autograd.Function):
+    """K3 forward, K4 backward: the counterpart of ``_knn_max_train2``.
+
+    ``apply(x, y, rel, k, train)`` with ``x (B, N, C)`` the queries and
+    ``y (B, M, C)`` the candidates (a self-graph passes ``x`` twice and
+    autograd sums the two gradients). The forward saves the values, the
+    indices and the f32 max: the JAX package saves the max cast to
+    ``x.dtype``, which never equals an f32 value again when x is bf16 and y
+    f32, and the gradient is then silently zero. The backward gives the
+    queries no gradient (``None``: selection carries none) and the candidates
+    K4's output in their dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, x, y, rel, k, train):
+        xn, yn = _normalized(x, y, train)
+        # K3 takes f32 coordinates; bf16-rounded ones are exact in f32, and
+        # the kernels multiply them as f32 either way
+        xn = xn.float().contiguous()
+        yn = xn if yn is xn else yn.float().contiguous()
+        yv = (y if y.dtype == torch.bfloat16 else y.float()).contiguous()
+        maxv, idx = knn_max_idx_cuda(xn, yn, yv, rel, k)
+        ctx.save_for_backward(yv, idx, maxv)
+        ctx.k, ctx.y_dtype = k, y.dtype
+        return maxv.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        yv, idx, maxv = ctx.saved_tensors
+        gy = knn_max_bwd_cuda(yv, idx, maxv, g.float().contiguous(), ctx.k)
+        return None, gy.to(ctx.y_dtype), None, None, None
+
+
 def knn_max_neighbors(
     x: torch.Tensor,
     k: int,
     y: torch.Tensor | None = None,
     relative_pos: torch.Tensor | None = None,
+    *,
+    train: bool = False,
 ) -> torch.Tensor:
     """Per-channel max over the k nearest neighbours of each node.
 
@@ -170,32 +450,26 @@ def knn_max_neighbors(
         k: neighbours per node.
         y: optional ``(B, M, C)`` candidate set (raw); defaults to ``x``.
         relative_pos: optional ``(N, M)`` additive distance bias.
+        train: True inside a training step: select on f32 coordinates.
     Returns:
         ``(B, N, C)`` in ``x.dtype``.
 
-    A CPU tensor goes to the plain version. A CUDA tensor goes to K1; what K1
-    does not take (a per-batch bias, ``k > min(32, M)``, autograd) raises.
+    A CPU tensor goes to the plain version. A CUDA tensor goes to K3/K4
+    (:class:`KnnMaxTrain`) when a gradient is needed and to K1 otherwise;
+    what the kernels do not take (a per-batch bias, ``k > min(32, M)``)
+    raises.
     """
     if x.device.type == "cpu":
-        return knn_max_neighbors_reference(x, k, y, relative_pos).to(x.dtype)
+        return knn_max_neighbors_reference(x, k, y, relative_pos, train).to(x.dtype)
     if x.device.type != "cuda":
         raise NotImplementedError(f"knn_max_neighbors on {x.device.type}")
     vals = x if y is None else y
-    N, M = x.shape[1], vals.shape[1]
-    if relative_pos is not None and relative_pos.dim() != 2:
-        raise NotImplementedError("K1 takes one (N, M) bias shared by the batch")
-    if k > min(K_MAX, M):
-        raise NotImplementedError(f"K1 takes k <= min({K_MAX}, M); got k={k}, M={M}")
-    if x.requires_grad or vals.requires_grad:
-        raise NotImplementedError("K1 has no backward yet (K3/K4)")
-    xn, yn = _normalized(x, y)
+    rel = kernel_bias(relative_pos, k, x.shape[1], vals.shape[1])
+    if torch.is_grad_enabled() and (x.requires_grad or vals.requires_grad):
+        return KnnMaxTrain.apply(x, vals, rel, k, train)
+    xn, yn = _normalized(x, y, train)
     # the cast commutes with the max (rounding is monotonic): exact for x and
     # y in bf16 or f32
     yv = vals.to(xn.dtype)
-    rel = None
-    if relative_pos is not None:
-        rel = relative_pos.to(torch.float32).expand(N, M).contiguous()
-    out = knn_max_cuda(
-        xn.contiguous(), yn.contiguous(), yv.contiguous(), rel, k
-    )
+    out = knn_max_cuda(xn.contiguous(), yn.contiguous(), yv.contiguous(), rel, k)
     return out.to(x.dtype)

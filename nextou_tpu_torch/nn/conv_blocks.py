@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nextou_tpu_torch.nn.layers import LEAKY_SLOPE
+from nextou_tpu_torch.nn.layers import LEAKY_SLOPE, batch_norm
 
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
 _BATCH_NORM = {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
@@ -30,8 +30,8 @@ def conv(x: torch.Tensor, module: nn.Module) -> torch.Tensor:
 
 
 class ConvNormAct(nn.Module):
-    """conv -> BatchNorm (eps 1e-5) -> LeakyReLU(0.01); upstream names
-    ``conv`` and ``norm``."""
+    """conv -> BatchNorm (eps 1e-5, see ``layers.batch_norm``) ->
+    LeakyReLU(0.01); upstream names ``conv`` and ``norm``."""
 
     def __init__(
         self, cin: int, cout: int, kernel_size: Sequence[int],
@@ -47,7 +47,7 @@ class ConvNormAct(nn.Module):
         self.norm = _BATCH_NORM[dims](cout, eps=1e-5, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.leaky_relu(self.norm(conv(x, self.conv)), LEAKY_SLOPE)
+        return F.leaky_relu(batch_norm(self.norm, conv(x, self.conv)), LEAKY_SLOPE)
 
 
 class StackedConvBlocks(nn.Module):

@@ -10,10 +10,12 @@ Counterpart of ``nextou_tpu/nn/graph_conv.py`` (upstream
 - :class:`PoolDyGraphConv`: max pool (argmax kept) before the graph, the
   channel-doubled output scattered back to the argmax positions after.
 
-The per-channel neighbour max comes from
-:func:`nextou_tpu_torch.kernels.knn_max_neighbors` (K1 on the card). Every
-flagship graph has dilation 1, the only case ported: the dilated and
-stochastic graphs are training-time and not ported yet.
+With dilation 1 (every flagship graph) the per-channel neighbour max comes
+from :func:`nextou_tpu_torch.kernels.knn_max_neighbors`: K1 on the card, K3
+and K4 when a gradient is needed. A dilated graph sub-samples the indices
+before the gather, so a fused max cannot be used: the indices come from
+:func:`nextou_tpu_torch.core.graph.dilated_knn_graph` (K2 on the card) and
+the gather and max after it are plain PyTorch with autograd.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from nextou_tpu_torch.core.graph import batched_index_select, dilated_knn_graph
 from nextou_tpu_torch.kernels.knn import knn_max_neighbors
 from nextou_tpu_torch.nn.layers import GroupedMLP
 
@@ -128,12 +131,18 @@ class DyGraphConv(nn.Module):
     """Dynamic-graph MRConv over a channels-last map ``(B, *sp, C)``."""
 
     def __init__(
-        self, cin: int, cout: int, dims: int, *, k: int, reduce_ratio: int = 1,
-        groups: int, norm: str, act_name: str, bias: bool = True, device=None,
+        self, cin: int, cout: int, dims: int, *, k: int, dilation: int = 1,
+        reduce_ratio: int = 1, stochastic: bool = False, epsilon: float = 0.0,
+        generator: torch.Generator | None = None, groups: int, norm: str,
+        act_name: str, bias: bool = True, device=None,
     ):
         super().__init__()
         self.k = k
+        self.dilation = dilation
         self.reduce_ratio = reduce_ratio
+        self.stochastic = stochastic
+        self.epsilon = epsilon
+        self.generator = generator
         self.gconv = MRConv(
             cin, cout, dims, groups=groups, norm=norm, act_name=act_name,
             bias=bias, device=device,
@@ -151,7 +160,18 @@ class DyGraphConv(nn.Module):
         cand = None
         if self.reduce_ratio > 1:
             cand = avg_pool(x, self.reduce_ratio).reshape(B, -1, C)
-        maxy = knn_max_neighbors(nodes, self.k, y=cand, relative_pos=relative_pos)
+        if self.dilation == 1:
+            maxy = knn_max_neighbors(
+                nodes, self.k, y=cand, relative_pos=relative_pos, train=self.training
+            )
+        else:
+            idx = dilated_knn_graph(
+                nodes, self.k, self.dilation, cand, relative_pos,
+                stochastic=self.stochastic and self.training,
+                epsilon=self.epsilon, generator=self.generator,
+            )
+            vals = nodes if cand is None else cand
+            maxy = torch.amax(batched_index_select(vals, idx), dim=2)
         return self.gconv(nodes, maxy)
 
     def forward(self, x: torch.Tensor, relative_pos=None) -> torch.Tensor:

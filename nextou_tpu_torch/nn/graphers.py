@@ -9,8 +9,9 @@ grapher holds its fixed relative-position kNN bias as the buffer
 builds each table once and hands the same tensor to every grapher that
 uses it.
 
-DropPath is the identity at eval, and every shipped spec sets it to 0: it
-is not ported.
+``drop_path`` is the stochastic-depth rate of the block's residual branch
+(0 in every shipped spec); its mask and the stochastic dilated graph draw
+from the ``generator`` the model hands down.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from torch import nn
 
 from nextou_tpu_torch.core.window import window_partition, window_reverse
 from nextou_tpu_torch.nn.graph_conv import DyGraphConv, PoolDyGraphConv
-from nextou_tpu_torch.nn.layers import LastDimBatchNorm, PointwiseConv, act
+from nextou_tpu_torch.nn.layers import DropPath, LastDimBatchNorm, PointwiseConv, act
 
 
 class Fc(nn.Sequential):
@@ -40,14 +41,15 @@ class FFN(nn.Module):
     """``x + fc2(act(fc1(x)))`` (upstream ``:368-390``)."""
 
     def __init__(self, channels: int, hidden: int, dims: int, *, act_name: str,
-                 device=None):
+                 drop_path: float = 0.0, generator=None, device=None):
         super().__init__()
         self.act_name = act_name
         self.fc1 = Fc(channels, hidden, dims, device)
         self.fc2 = Fc(hidden, channels, dims, device)
+        self.drop_path = DropPath(drop_path, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(act(self.act_name, self.fc1(x))) + x
+        return self.drop_path(self.fc2(act(self.act_name, self.fc1(x)))) + x
 
 
 class SwinGrapher(nn.Module):
@@ -59,7 +61,8 @@ class SwinGrapher(nn.Module):
     def __init__(
         self, channels: int, relative_pos: torch.Tensor, *,
         window_size: Sequence[int], shift_size: Sequence[int], k: int,
-        groups: int, act_name: str, bias: bool = True, device=None,
+        groups: int, act_name: str, bias: bool = True, drop_path: float = 0.0,
+        generator=None, device=None, **graph,
     ):
         super().__init__()
         dims = len(window_size)
@@ -70,9 +73,11 @@ class SwinGrapher(nn.Module):
         self.fc1 = Fc(channels, channels, dims, device)
         self.graph_conv = DyGraphConv(
             channels, 2 * channels, dims, k=k, groups=groups, norm="batch",
-            act_name=act_name, bias=bias, device=device,
+            act_name=act_name, bias=bias, generator=generator, device=device,
+            **graph,
         )
         self.fc2 = Fc(2 * channels, channels, dims, device)
+        self.drop_path = DropPath(drop_path, generator)
         self.register_buffer("relative_pos", relative_pos)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -85,7 +90,7 @@ class SwinGrapher(nn.Module):
         h = window_reverse(h, self.window_size, sp)
         if shifted:
             h = torch.roll(h, list(self.shift_size), axes)
-        return h + x
+        return self.drop_path(h) + x
 
 
 class PoolGrapher(nn.Module):
@@ -95,7 +100,8 @@ class PoolGrapher(nn.Module):
     def __init__(
         self, channels: int, relative_pos: torch.Tensor, *,
         pool_size: Sequence[int], k: int, reduce_ratio: int, groups: int,
-        act_name: str, norm: str, bias: bool = True, device=None,
+        act_name: str, norm: str, bias: bool = True, drop_path: float = 0.0,
+        generator=None, device=None, **graph,
     ):
         super().__init__()
         dims = len(pool_size)
@@ -103,11 +109,13 @@ class PoolGrapher(nn.Module):
         self.graph_conv = PoolDyGraphConv(
             channels, 2 * channels, dims, pool_size=pool_size, k=k,
             reduce_ratio=reduce_ratio, groups=groups, norm=norm,
-            act_name=act_name, bias=bias, device=device,
+            act_name=act_name, bias=bias, generator=generator, device=device,
+            **graph,
         )
         self.fc2 = Fc(2 * channels, channels, dims, device)
+        self.drop_path = DropPath(drop_path, generator)
         self.register_buffer("relative_pos", relative_pos)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc2(self.graph_conv(self.fc1(x), self.relative_pos[0]))
-        return h + x
+        return self.drop_path(h) + x

@@ -8,7 +8,8 @@ and names (``weight (O, I/groups, *1s)``, ``bias``, BatchNorm's running
 statistics), so upstream state_dicts load as they are.
 
 Parameters stay f32. Every layer computes in its input's dtype (the model's
-compute dtype) and casts its weights to it; norm statistics are f32.
+compute dtype) and casts its weights to it, so gradients arrive in f32 on
+the f32 parameters; norm statistics are f32.
 """
 
 from __future__ import annotations
@@ -80,13 +81,42 @@ class PointwiseConv(nn.Module):
         return F.linear(x, w, b)
 
 
+def batch_norm(module: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """Apply a ``BatchNorm{1,2,3}d`` module's parameters to a channels-first
+    ``x``: running statistics at eval, batch statistics in training.
+
+    In training the running variance is updated with the *biased* batch
+    variance, as flax ``nn.BatchNorm`` (and so ``nextou_tpu``) stores it;
+    ``torch.nn.BatchNorm*`` stores the unbiased one. The fused op does the
+    update, and its ``n / (n - 1)`` factor is then taken out of the new term.
+    ``module.momentum == 0`` leaves both statistics exactly as they are.
+    """
+    if not module.training:
+        return F.batch_norm(
+            x, module.running_mean, module.running_var, module.weight,
+            module.bias, False, 0.0, module.eps,
+        )
+    n = x.numel() // x.shape[1]
+    # the fused op updates a copy: autograd keeps the tensor it was given,
+    # which must not change before the backward pass
+    new_var = module.running_var.clone()
+    y = F.batch_norm(
+        x, module.running_mean, new_var, module.weight, module.bias, True,
+        module.momentum, module.eps,
+    )
+    with torch.no_grad():
+        kept = (1.0 - module.momentum) * module.running_var
+        module.running_var.copy_((new_var - kept) * ((n - 1) / n) + kept)
+    return y
+
+
 class LastDimBatchNorm(nn.BatchNorm1d):
     """BatchNorm over the last axis of a channels-last tensor (eps 1e-5,
-    momentum 0.1, running statistics at eval). Statistics are f32; the
-    output keeps the input dtype."""
+    momentum 0.1; see :func:`batch_norm`). Statistics are f32; the output
+    keeps the input dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+        return batch_norm(self, x.reshape(-1, x.shape[-1])).reshape(x.shape)
 
 
 class InstanceNorm(nn.Module):
@@ -107,6 +137,27 @@ class InstanceNorm(nn.Module):
         var = torch.square(xf - mean).mean(axes, keepdim=True)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (timm ``DropPath``): in training each
+    sample is dropped with probability ``rate`` and the kept ones are scaled
+    by ``1 / (1 - rate)``; the identity at eval or with ``rate == 0``. The
+    mask is drawn from ``generator`` (a CPU generator: a seed gives the same
+    mask on any device)."""
+
+    def __init__(self, rate: float, generator: torch.Generator | None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate <= 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape[0], generator=self.generator) < keep
+        mask = mask.to(x.device).reshape(-1, *([1] * (x.dim() - 1)))
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def make_norm(kind: str, channels: int, device=None) -> nn.Module:

@@ -29,12 +29,12 @@ from typing import Callable, Iterator, Sequence
 import numpy as np
 import torch
 
-from nextou_tpu.data.dataset import PreprocessedDataset
-from nextou_tpu.plans.loader import PlansManager, load_dataset_json
 from nextou_tpu_torch.compat.weights import extract_network_weights
+from nextou_tpu_torch.data.dataset import PreprocessedDataset
 from nextou_tpu_torch.infer.sliding_window import make_device_sliding_predictor
 from nextou_tpu_torch.models.nextou import NexToU
 from nextou_tpu_torch.models.spec import ModelSpec, build_model_spec
+from nextou_tpu_torch.plans.loader import PlansManager, load_dataset_json
 
 # the seven public NexToU trainer names; the _NoMirroring ones predict
 # without mirror TTA (upstream nnUNetTrainer_NexToU_NoMirroring.py:8-9)

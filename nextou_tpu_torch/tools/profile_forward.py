@@ -33,8 +33,37 @@ GROUPS = (
 )
 
 
-def group(name: str) -> str:
-    return next((g for frag, g in GROUPS if frag in name), "elementwise/other")
+def profile(fn, n: int, groups=GROUPS, unit: str = "forward", top: int = TOP) -> None:
+    """Run ``fn`` ``n`` times under ``torch.profiler`` and print, per run, the
+    wall and device kernel time, the idle share of the wall time, the device
+    time by kernel group (``groups``: name fragment -> group, the first
+    match wins) and the ``top`` largest kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device kernel")
+    per_name: dict[str, list] = {}
+    for e in kernels:
+        slot = per_name.setdefault(e.name, [0.0, 0])
+        slot[0] += e.time_range.elapsed_us() / 1e3
+        slot[1] += 1
+    busy = sum(t for t, _ in per_name.values())
+    by_group: dict[str, float] = {}
+    for name, (t, _) in per_name.items():
+        g = next((g for frag, g in groups if frag in name), "elementwise/other")
+        by_group[g] = by_group.get(g, 0.0) + t
+    print(f"profiled: wall {wall_ms / n:.1f} ms/{unit}, device kernel time "
+          f"{busy / n:.1f} ms/{unit}, idle share {1 - busy / wall_ms:.3f}")
+    for g, t in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {g:26s} {t / n:8.2f} ms  {t / busy:.3f}")
+    for name, (t, c) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {t / n:8.2f} ms  x {c // n:4d}  {name[:110]}")
 
 
 def main() -> int:
@@ -71,32 +100,7 @@ def main() -> int:
     print(f"forward batch {BATCH} bf16: {(time.perf_counter() - t0) / TIMED * 1e3:.1f} ms "
           f"(host clock, {TIMED} forwards)")
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILED):
-            forward()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device kernel")
-    per_name: dict[str, list] = {}
-    for e in kernels:
-        slot = per_name.setdefault(e.name, [0.0, 0])
-        slot[0] += e.time_range.elapsed_us() / 1e3
-        slot[1] += 1
-    busy = sum(t for t, _ in per_name.values())
-    groups: dict[str, float] = {}
-    for name, (t, _) in per_name.items():
-        groups[group(name)] = groups.get(group(name), 0.0) + t
-    n = PROFILED
-    print(f"profiled: wall {wall_ms / n:.1f} ms/forward, device kernel time "
-          f"{busy / n:.1f} ms/forward, idle share {1 - busy / wall_ms:.3f}")
-    for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {g:26s} {t / n:7.2f} ms  {t / busy:.3f}")
-    for name, (t, c) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:TOP]:
-        print(f"  {t / n:8.2f} ms  x {c // n:3d}  {name[:110]}")
+    profile(forward, PROFILED)
     print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return 0
 
