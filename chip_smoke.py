@@ -47,7 +47,35 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    recomputed in the backward pass (K3 launched 28 times per step, K4 14);
 8. a small network trained for 2 steps on the card (K3, K4, and K2 through
    one dilated stage) against the same 2 steps on the CPU (plain versions),
-   each step from the same state.
+   each step from the same state;
+9. the conv kernel K5 against its plain version at the five flagship convs
+   that ``conv_kernel="1"`` hands to it (the list is derived from the spec
+   and must be e1a, e1b, e2a, d1a, d1b), in bf16 at batch 4 and in f32 at
+   batch 1. Tolerance: f32 within 1e-4 (the order of an f32 sum of up to
+   3,564 products); bf16 within one rounding of the output, 2^-7 of the
+   value + 1e-3. Per shape its time beside ``F.conv3d``'s (cuDNN), the plain
+   version's and its bound (bytes at 3.35 TB/s or 2 B S_out 27 C Co
+   operations at the tensor cores' bf16 peak, for f32 the f32 peak);
+10. serving with the kernel on: one flagship volume through
+    ``predict.main --conv-kernel 1`` (K5 launched exactly 40 times, K1 112),
+    seconds, peak device memory, labels in range; then a narrow network of
+    the flagship's geometry (so that the same five convs reach K5), kernels
+    halved as in phase 6, mode ``"1"`` against ``"0"`` on the card, in f32
+    (K5's FMA kernel) and in bf16 (its tensor-core kernel): at most 0.1% of
+    the logits outside atol 2e-3 / rtol 1e-3 in f32 (a kNN near tie may
+    flip under the conv's reordered sum) and outside 5e-3 / 5e-3 in bf16
+    (one rounding step of a conv output), argmax agreement 99.9%;
+11. training with the kernel on: the flagship of phase 7 from the same seed
+    takes 2 Dice + CE steps with ``conv_kernel="1"`` (K5 launched exactly 5
+    times per step, its backward being the library conv's), the first loss
+    within rtol 1e-2 of phase 7's first loss (bf16 compute: the conv's
+    rounding differs, and kNN near ties with it), then one step with every
+    stage recomputed (10 launches);
+12. the tools: T4's ``check`` (K5 against the plain and the library conv at
+    small cases), T2's row-patch probe in both output orders against its
+    numpy oracle (max error under 1e-4), T1's dissection of K1 at its two
+    shapes (mode ``full`` against the plain version, at most 0.1% of rows
+    off; the five modes' times printed).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record, each entry with the path its numbers were taken
@@ -62,13 +90,14 @@ import json
 import math
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+
+from nextou_tpu_torch.tools.timing import card, cuda_ms
 
 # the near-tie bound of phases 3 and 4, the row share allowed to differ (in
 # its set of neighbours; in their order alone), and the fewest rows that
@@ -98,27 +127,6 @@ BTI_SYNAPSE_EXCLUSION = [
 ]
 
 
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 5) -> float:
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def nbytes(*tensors) -> int:
     """Bytes of the given tensors, each storage once (a self-graph passes one
     tensor as queries and candidates); ``None`` entries skipped."""
@@ -140,20 +148,23 @@ class Totals:
     def __init__(self):
         self.ms = self.plain_ms = self.bound_ms = self.max_abs_err = 0.0
         self.by = {"bytes": 0.0, "operations": 0.0}
+        # stays None where no single PyTorch call computes the function (kNN
+        # + gather + max, its indices, its backward)
+        self.library_ms = None
 
-    def add(self, count, ms, plain_ms, bound, by, err):
+    def add(self, count, ms, plain_ms, bound, by, err, library_ms=None):
         self.ms += count * ms
         self.plain_ms += count * plain_ms
         self.bound_ms += count * bound
         self.by[by] += count * bound
         self.max_abs_err = max(self.max_abs_err, err)
+        if library_ms is not None:
+            self.library_ms = (self.library_ms or 0.0) + count * library_ms
 
     def record(self) -> dict:
         return {"max_abs_err": self.max_abs_err, "ms": self.ms, "plain_ms": self.plain_ms,
                 "bound_ms": self.bound_ms, "bound_by": max(self.by, key=self.by.get),
-                # no single PyTorch call computes kNN + gather + max, its
-                # indices, or its backward
-                "library_ms": None}
+                "library_ms": self.library_ms}
 
 
 def knn_calls(spec, batch: int, dilated: bool = False) -> dict:
@@ -486,6 +497,7 @@ def write_dataset(folder: str, spec, configuration: str, cases: int, shape, seed
 def slice_phase(dev, tmp: str, spec, shape) -> dict:
     from nextou_tpu_torch import predict
     from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda
     from nextou_tpu_torch.kernels.knn import knn_max_cuda
     from nextou_tpu_torch.models import NexToU
     from nextou_tpu_torch.utils import init_weights
@@ -506,13 +518,15 @@ def slice_phase(dev, tmp: str, spec, shape) -> dict:
     forwards = n_cases * math.ceil(tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    knn_max_cuda.launches = 0
+    knn_max_cuda.launches = conv3d_cuda.launches = 0
     t0 = time.time()
     predict.main([model_dir, data_dir, config, "-tr", "nnUNetTrainer_NexToU",
                   "-o", out_dir, "--tile-batch", str(TILE_BATCH), "--device", str(dev)])
     torch.cuda.synchronize()
     main_s = time.time() - t0
     launches = knn_max_cuda.launches
+    if conv3d_cuda.launches:
+        raise AssertionError("the default configuration launched the conv kernel")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"predict.main: {n_cases} volumes {shape}, {tiles} tiles each, "
           f"{forwards} forwards, {main_s:.2f} s incl. model build and load; "
@@ -592,6 +606,7 @@ def small_reference_phase(dev):
 def train_phase(dev, spec) -> dict:
     """The training slice at full width and depth: 3 steps with Dice + CE, 2
     with the BTI Synapse term, one eval step."""
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda
     from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda
     from nextou_tpu_torch.losses import CompoundLossSpec, TILossSpec, deep_supervision_weights
     from nextou_tpu_torch.models import NexToU
@@ -618,11 +633,11 @@ def train_phase(dev, spec) -> dict:
 
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     stats = {n: b.clone() for n, b in model.named_buffers() if "running_" in n}
-    for counter in (knn_max_idx_cuda, knn_max_bwd_cuda, knn_max_cuda):
+    for counter in (knn_max_idx_cuda, knn_max_bwd_cuda, knn_max_cuda, conv3d_cuda):
         counter.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    seconds, plan = [], [("Dice+CE", base)] * 3 + [("Dice+CE+BTI", bti)] * 2
+    seconds, losses, plan = [], [], [("Dice+CE", base)] * 3 + [("Dice+CE+BTI", bti)] * 2
     steps = {name: make_train_step(model, opt, ls, weights) for name, ls in dict(plan).items()}
     for i, (name, _) in enumerate(plan):
         t0 = time.time()
@@ -630,6 +645,7 @@ def train_phase(dev, spec) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.time() - t0)
         loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+        losses.append(loss)
         print(f"train step {i} ({name}): loss {loss:.4f} grad_norm {norm:.4f} "
               f"{seconds[-1]:.3f} s")
         if not (math.isfinite(loss) and math.isfinite(norm)):
@@ -710,8 +726,10 @@ def train_phase(dev, spec) -> dict:
     if not (math.isfinite(loss) and math.isfinite(norm)
             and (knn_max_idx_cuda.launches, knn_max_bwd_cuda.launches) == (2 * 28, 2 * 14)):
         raise AssertionError("the recomputed train steps failed their checks")
+    if conv3d_cuda.launches:
+        raise AssertionError("the default configuration launched the conv kernel")
     return {"k3": k3, "k4": k4, "s_per_step": min(steady), "s_per_step_bti": seconds[4],
-            "peak_bytes": peak}
+            "peak_bytes": peak, "first_loss": losses[0]}
 
 
 def small_train_spec():
@@ -802,11 +820,296 @@ def small_train_phase(dev) -> int:
     return k2
 
 
+def conv_calls(spec, mode: str = "1") -> list:
+    """(name, C, Co, stride, input spatial) of the convs that ``conv_kernel``
+    = ``mode`` hands to K5 in one forward, from the spec the way the model
+    builds its stages: encoder stage ``s`` is ``e{s}``, the decoder stage at
+    its resolution ``d{s}``, the convs of a stage ``a``, ``b``."""
+    from nextou_tpu_torch.kernels.conv import conv_kernel_wins
+
+    stages, shape, cin = [], tuple(spec.patch_size), spec.in_channels
+    for i, st in enumerate(spec.encoder):
+        stages.append((f"e{i}", st.n_conv, cin, st.features, st.kernel_size, st.stride, shape))
+        shape = tuple(a // b for a, b in zip(shape, st.stride))
+        cin = st.features
+    ones = (1,) * spec.spatial_dims
+    for i, st in enumerate(spec.decoder):
+        s = len(spec.encoder) - 2 - i
+        stages.append((f"d{s}", st.n_conv, 2 * st.features, st.features, st.kernel_size, ones,
+                       tuple(spec.encoder[s].img_shape)))
+    calls = []
+    for name, n_conv, cin, cout, kernel, stride, shape in stages:
+        for j in range(n_conv):
+            strided = any(v > 1 for v in stride)
+            named = mode == "1" or (mode == "s1" and not strided) or (mode == "s2" and strided)
+            if named and len(kernel) == 3 and conv_kernel_wins(shape, cin, cout, kernel, stride):
+                calls.append((name + "ab"[j], cin, cout, tuple(stride), shape))
+            shape = tuple(a // b for a, b in zip(shape, stride))
+            cin, stride = cout, ones
+    return calls
+
+
+# the narrow network with the conv kernel on against off, per compute dtype:
+# atol, rtol, the share of logits allowed outside them, the least argmax
+# agreement. f32: the order of an f32 sum, and the kNN near ties it flips
+# (phase 6's rule; an H100 showed no difference at all: cuDNN's f32 conv adds
+# in K5's order). bf16: a conv output that lands on the other side of a
+# rounding step moves by 2^-8 of its value, and what follows moves with it:
+# five times what an H100 showed (9.8e-4 at logits up to 0.28).
+NARROW_TOLERANCES = {
+    torch.float32: (2e-3, 1e-3, 1e-3, 0.999),
+    torch.bfloat16: (5e-3, 5e-3, 1e-3, 0.999),
+}
+
+FLAGSHIP_CONVS = [
+    ("e1a", 33, 66, (1, 2, 2), (64, 224, 192)), ("e1b", 66, 66, (1, 1, 1), (64, 112, 96)),
+    ("e2a", 66, 132, (2, 2, 2), (64, 112, 96)), ("d1a", 132, 66, (1, 1, 1), (64, 112, 96)),
+    ("d1b", 66, 66, (1, 1, 1), (64, 112, 96)),
+]
+
+
+def conv_kernel_phase(spec, dev) -> Totals:
+    """K5 at the five flagship convs of its region: bf16 at the serving
+    batch and f32 at batch 1 against the plain version; times by CUDA events
+    beside ``F.conv3d``'s. Returns the bf16 sums: one serving forward's."""
+    import torch.nn.functional as F
+
+    from nextou_tpu_torch.kernels.conv import conv3d, conv3d_reference
+
+    calls = conv_calls(spec)
+    if calls != FLAGSHIP_CONVS:
+        raise AssertionError(f"conv_kernel='1' routes {calls}")
+    assert [c[0] for c in conv_calls(spec, "s1")] == ["e1b", "d1a", "d1b"]
+    assert [c[0] for c in conv_calls(spec, "s2")] == ["e1a", "e2a"]
+    gen = torch.Generator(device=dev).manual_seed(40)
+    totals = {torch.bfloat16: Totals(), torch.float32: Totals()}
+    for name, C, Co, stride, spatial in calls:
+        for dtype, B in ((torch.bfloat16, TILE_BATCH * MIRRORS_PER_FORWARD), (torch.float32, 1)):
+            x = torch.randn(B, C, *spatial, generator=gen, device=dev).to(dtype)
+            w = (torch.randn(Co, C, 3, 3, 3, generator=gen, device=dev) * 0.05).to(dtype)
+            got = conv3d(x, w, stride)
+            torch.cuda.synchronize()
+            want = conv3d_reference(x, w, stride)
+            out_spatial = tuple(n // s for n, s in zip(spatial, stride))
+            assert got.shape == want.shape == (B, Co, *out_spatial) and got.dtype == dtype
+            assert torch.isfinite(got.float()).all()
+            diff = (got.float() - want.float()).abs()
+            err, differ = diff.max().item(), (diff > 0).float().mean().item()
+            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * want.float().abs() + 1e-3
+            ok = bool((diff <= tol).all())
+            del diff, want, tol
+            t_k5 = cuda_ms(lambda: conv3d(x, w, stride), iters=3, warmup=1)
+            t_lib = cuda_ms(lambda: F.conv3d(x, w, None, stride, 1))
+            t_plain = cuda_ms(lambda: conv3d_reference(x, w, stride), iters=2, warmup=1)
+            flops = 2.0 * B * math.prod(out_spatial) * 27 * C * Co
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+            bound, by = bound_ms(nbytes(x, w, got), flops, peak)
+            totals[dtype].add(1, t_k5, t_plain, bound, by, err, t_lib)
+            print(f"K5 {name} B={B} {C}->{Co} stride {stride} in {spatial} {str(dtype)[6:]}: "
+                  f"max|err| {err:.3g} ({differ:.2e} of values differ)  K5 {t_k5:.3f} ms "
+                  f"({flops / t_k5 / 1e9:.1f} TFLOP/s)  cudnn {t_lib:.3f} ms  plain {t_plain:.3f} ms  "
+                  f"bound {bound:.4f} ms ({by})")
+            if not ok:
+                raise AssertionError(f"K5 disagrees with the plain version at {name} {dtype}")
+            del x, w, got
+        torch.cuda.empty_cache()
+    for dtype, t in totals.items():
+        print(f"K5 over the five convs ({str(dtype)[6:]}): {t.ms:.3f} ms, cudnn {t.library_ms:.3f} "
+              f"ms, plain {t.plain_ms:.3f} ms, bound {t.bound_ms:.3f} ms")
+    return totals[torch.bfloat16]
+
+
+def narrow_flagship_spec():
+    """The flagship's patch, kernels and strides at widths 6/12: its five
+    convs of K5's region are in this network's too."""
+    from nextou_tpu_torch.models.presets import flagship_3d_spec
+    from nextou_tpu_torch.models.spec import build_model_spec
+
+    flagship = flagship_3d_spec()
+    return build_model_spec(
+        in_channels=1, patch_size=flagship.patch_size, n_stages=6,
+        features_per_stage=[6, 12, 12, 12, 12, 12],
+        kernel_sizes=[st.kernel_size for st in flagship.encoder],
+        strides=[st.stride for st in flagship.encoder],
+        n_conv_per_stage=[2] * 6, n_conv_per_stage_decoder=[2] * 5,
+        num_classes=3, deep_supervision=False,
+    )
+
+
+def conv_serving_phase(dev, tmp: str, spec, shape) -> dict:
+    """One flagship volume through ``predict.main --conv-kernel 1``, on the
+    dataset and checkpoint that :func:`slice_phase` left in ``tmp``; then a
+    narrow network of the flagship's geometry with the kernel on against
+    off, on the card in f32."""
+    from nextou_tpu_torch import predict
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda
+    from nextou_tpu_torch.kernels.knn import knn_max_cuda
+    from nextou_tpu_torch.models import NexToU
+    from nextou_tpu_torch.utils import init_weights
+
+    config = "3d_fullres_nextou"
+    data_dir, model_dir, out_dir = (os.path.join(tmp, d) for d in ("data", "model", "out_k5"))
+    forwards = 2 * (8 // MIRRORS_PER_FORWARD)  # 4 tiles at tile batch 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    conv3d_cuda.launches = knn_max_cuda.launches = 0
+    t0 = time.time()
+    predict.main([model_dir, data_dir, config, "-tr", "nnUNetTrainer_NexToU", "-o", out_dir,
+                  "--cases", "case_000", "--tile-batch", str(TILE_BATCH), "--device", str(dev),
+                  "--conv-kernel", "1"])
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    launches, k1 = conv3d_cuda.launches, knn_max_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    with np.load(os.path.join(out_dir, "case_000.npz")) as z:
+        seg = z["seg"]
+    with np.load(os.path.join(tmp, "out", "case_000.npz")) as z:
+        agree = float(np.mean(seg == z["seg"]))
+    print(f"predict.main --conv-kernel 1: 1 volume {shape}, {forwards} forwards, {main_s:.2f} s "
+          f"incl. model build and load; K5 launches {launches}, K1 launches {k1}; peak device "
+          f"memory {peak / 2**30:.2f} GiB; labels {np.unique(seg).tolist()}; the same label as "
+          f"without the kernel on {agree:.4f} of voxels")
+    if (launches, k1) != (5 * forwards, 14 * forwards):
+        raise AssertionError(f"K5 launched {launches} times, K1 {k1}, in {forwards} forwards")
+    assert seg.shape == shape and seg.dtype == np.uint8 and seg.max() < spec.num_classes
+
+    plans, _, infer_spec = predict.load_dataset(data_dir, config)
+    checkpoint = os.path.join(model_dir, "checkpoint_final.pth")
+    data = next(d for _, d in predict.iter_cases(data_dir, plans, config, ["case_000"]))
+    times = {}
+    for mode in ("1", "0"):
+        model = predict.load_model(infer_spec, checkpoint, dev, conv_kernel=mode)
+        seg_pred = predict.build_predictor(model, (0, 1, 2), tile_batch=TILE_BATCH, output="seg")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        seg_pred(data)
+        torch.cuda.synchronize()
+        times[mode] = time.time() - t0
+        del model, seg_pred
+    print(f"seconds per volume (8-way TTA, tile batch {TILE_BATCH}, bf16): {times['1']:.3f} with "
+          f"conv_kernel='1', {times['0']:.3f} with '0' in the same run")
+
+    # the f32 kernel, then the bf16 one, each in a network against the library conv
+    narrow = narrow_flagship_spec()
+    x = torch.from_numpy(np.random.default_rng(41).standard_normal(
+        (2, *narrow.patch_size, 1)).astype(np.float32)).to(dev)
+    for dtype, (atol, rtol, max_off, min_same) in NARROW_TOLERANCES.items():
+        out = {}
+        for mode in ("1", "0"):
+            model = init_weights(
+                NexToU(narrow, dtype=dtype, conv_kernel=mode, device=dev), seed=3).eval()
+            conv3d_cuda.launches = 0
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.dim() >= 2:
+                        p.mul_(0.5)
+                out[mode] = model(x).float().cpu().numpy()
+            if conv3d_cuda.launches != (5 if mode == "1" else 0):
+                raise AssertionError(
+                    f"narrow network, mode {mode}: K5 launched {conv3d_cuda.launches} times")
+        got, want = out["1"], out["0"]
+        off = np.abs(got - want) > atol + rtol * np.abs(want)
+        same = float(np.mean(np.argmax(got, -1) == np.argmax(want, -1)))
+        print(f"narrow flagship-geometry network {str(dtype)[6:]}, conv_kernel '1' vs '0' on the "
+              f"card: max|diff| {np.abs(got - want).max():.3g} (max|logit| {np.abs(want).max():.3g}), "
+              f"{off.mean():.2e} of values outside atol {atol:g}/rtol {rtol:g}, argmax agreement "
+              f"{same:.6f}")
+        if off.mean() > max_off or same < min_same:
+            raise AssertionError(f"the {dtype} network with the conv kernel on disagrees with it off")
+    return {"launches": launches, "s_per_volume": times["1"], "s_per_volume_off": times["0"],
+            "peak_bytes": peak}
+
+
+def conv_train_phase(dev, spec, first_loss_off: float) -> dict:
+    """The training slice with the conv kernel on: the flagship of
+    :func:`train_phase` (the same seed and batch) with ``conv_kernel="1"``."""
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda
+    from nextou_tpu_torch.losses import CompoundLossSpec, deep_supervision_weights
+    from nextou_tpu_torch.models import NexToU
+    from nextou_tpu_torch.models.nextou import remat_flags
+    from nextou_tpu_torch.train import create_train_state, make_optimizer, make_train_step, poly_lr
+
+    rng = np.random.default_rng(20)
+    batch = {
+        "data": rng.standard_normal((TRAIN_BATCH, *spec.patch_size, 1), dtype=np.float32),
+        "seg": rng.integers(0, spec.num_classes, (TRAIN_BATCH, *spec.patch_size)),
+    }
+    model = NexToU(spec, dtype=torch.bfloat16, conv_kernel="1", device=dev)
+    opt = make_optimizer(poly_lr(1e-2, 1000, 0.9, steps_per_epoch=250))
+    state = create_train_state(model, opt, seed=0)
+    step = make_train_step(model, opt, CompoundLossSpec(), deep_supervision_weights(len(spec.decoder)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    seconds, losses, launches = [], [], []
+    for i in range(3):
+        if i == 2:  # every stage recomputed: each routed conv launches twice
+            model.remat = remat_flags(spec, True)
+        conv3d_cuda.launches = 0
+        t0 = time.time()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+        loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+        losses.append(loss)
+        launches.append(conv3d_cuda.launches)
+        print(f"train step {i} with conv_kernel='1'{' (every stage recomputed)' if i == 2 else ''}: "
+              f"loss {loss:.4f} grad_norm {norm:.4f} {seconds[-1]:.3f} s, K5 launches {launches[-1]}")
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise AssertionError(f"train step {i} with the conv kernel: loss {loss}, grad_norm {norm}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    off = abs(losses[0] - first_loss_off) / abs(first_loss_off)
+    print(f"first loss {losses[0]:.6f} against {first_loss_off:.6f} with conv_kernel='0' from the "
+          f"same state: off by {off:.2e}; peak device memory {peak / 2**30:.2f} GiB")
+    if launches != [5, 5, 10] or off > 1e-2:
+        raise AssertionError(f"train steps with the conv kernel: launches {launches}, loss off {off}")
+    return {"launches": sum(launches[:2]), "s_per_step": seconds[1], "peak_bytes": peak}
+
+
+def tools_phase(dev) -> dict:
+    """T4's check, T2's probe and T1's dissection through the tools' own
+    functions; returns the probes' records and launch counts."""
+    import torch.nn.functional as F
+
+    from nextou_tpu_torch.tools import exp_conv_probe, exp_conv_v2, exp_knn_dissect
+
+    exp_conv_v2.check(dev)
+
+    probe = Totals()
+    exp_conv_probe.conv_probe_cuda.launches = 0
+    TH, C, W, CO = (getattr(exp_conv_probe, n) for n in ("TH", "C", "W", "CO"))
+    x, w = (torch.from_numpy(a).to(dev) for a in exp_conv_probe.probe_inputs())
+    # the same function as one library call: a conv along the rows, k = 3
+    x3, w3 = x.reshape(TH + 2, C, W).permute(2, 1, 0), w.reshape(3, C, CO).permute(2, 1, 0)
+    want = exp_conv_probe.conv_probe_reference(x, w, True)
+    assert (F.conv1d(x3, w3).permute(2, 1, 0) - want).abs().max() < exp_conv_probe.TOLERANCE
+    t_lib = cuda_ms(lambda: F.conv1d(x3, w3), iters=20)
+    moved = (x.numel() + w.numel() + TH * W * CO) * 4
+    bound, by = bound_ms(moved, 2.0 * TH * W * 3 * C * CO)
+    for transpose_out in (False, True):
+        r = exp_conv_probe.run(dev, transpose_out)
+        probe.add(1, r["ms"], r["plain_ms"], bound, by, r["err"], t_lib)
+    print(f"conv_probe: library conv1d {t_lib:.4f} ms, bound {bound:.6f} ms ({by}) per output order")
+
+    dissect = Totals()
+    exp_knn_dissect.knn_dissect_cuda.launches = 0
+    for tag, B, N, M, C, k in exp_knn_dissect.SHAPES:
+        r = exp_knn_dissect.bench_shape(tag, B, N, M, C, k, dev)
+        # f32 coordinates, bf16 values and the f32 bias in, the f32 max out
+        moved = (B * N * C + B * M * C) * 4 + B * M * C * 2 + N * M * 4 + B * N * C * 4
+        bound, by = bound_ms(moved, 2.0 * B * N * M * C)
+        dissect.add(1, r["full"], r["plain_ms"], bound, by, r["max_abs_err"])
+        print(f"knn_dissect {tag}: bound {bound:.4f} ms ({by})")
+        torch.cuda.empty_cache()
+    return {"conv_probe": probe, "knn_dissect": dissect,
+            "probe_launches": exp_conv_probe.conv_probe_cuda.launches,
+            "dissect_launches": exp_knn_dissect.knn_dissect_cuda.launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 1
-    from nextou_tpu_torch.kernels.knn import build_kernels
+    from nextou_tpu_torch.kernels.build import build_kernels
     from nextou_tpu_torch.models.presets import flagship_3d_spec
 
     # f32 comparisons are full f32: no TF32 in matmuls or cuDNN convs
@@ -829,18 +1132,28 @@ def main() -> int:
     records = {"knn_max": kernel_phase(flagship_3d_spec(), dev)}
     records.update(train_kernel_phase(flagship_3d_spec(), dev))
     records["knn_indices"] = dilated_kernel_phase(small_train_spec(), dev)
+    records["conv3d"] = conv_kernel_phase(flagship_3d_spec(), dev)
     with tempfile.TemporaryDirectory() as tmp:
         # two cases of 64x280x240: 2 x 2 tiles of the 64x224x192 patch each
         sl = slice_phase(dev, tmp, flagship_3d_spec(num_classes=14), (64, 280, 240))
+        torch.cuda.empty_cache()
+        sl5 = conv_serving_phase(dev, tmp, flagship_3d_spec(num_classes=14), (64, 280, 240))
     small_reference_phase(dev)
     torch.cuda.empty_cache()
     tr = train_phase(dev, flagship_3d_spec(num_classes=14, deep_supervision=True))
     torch.cuda.empty_cache()
+    tr5 = conv_train_phase(dev, flagship_3d_spec(num_classes=14, deep_supervision=True),
+                           tr["first_loss"])
+    torch.cuda.empty_cache()
     k2_launches = small_train_phase(dev)
+    tools = tools_phase(dev)
+    records["conv_probe"], records["knn_dissect"] = tools["conv_probe"], tools["knn_dissect"]
 
     # each kernel's numbers belong to the path that runs it ("path"): K1 to
     # predict.main on the flagship, K3 and K4 to the flagship's train steps,
-    # K2 to the small dilated network's (no flagship graph is dilated)
+    # K2 to the small dilated network's (no flagship graph is dilated), K5 to
+    # the flagship with conv_kernel="1" (its launches: one served volume and
+    # two train steps), the probes' kernels to their tools
     sources = {
         "knn_max": ("knn_max.cu", "nextou_tpu/kernels/knn.py:40", sl["launches"],
                     "flagship predict"),
@@ -850,11 +1163,20 @@ def main() -> int:
                         "flagship train steps"),
         "knn_max_bwd": ("knn_max_bwd.cu", "nextou_tpu/kernels/knn.py:384", tr["k4"],
                         "flagship train steps"),
+        "conv3d": ("conv3d.cu", "nextou_tpu/kernels/conv.py:90",
+                   sl5["launches"] + tr5["launches"],
+                   "flagship predict and train steps with conv_kernel='1'"),
+        "conv_probe": ("conv_probe.cu", "tools/exp_mosaic_probe.py:24", tools["probe_launches"],
+                       "tools.exp_conv_probe, both output orders"),
+        "knn_dissect": ("knn_dissect.cu", "tools/exp_knn_dissect.py:27", tools["dissect_launches"],
+                        "tools.exp_knn_dissect, mode full at its two shapes"),
     }
+    records = {kernel: totals.record() for kernel, totals in records.items()}
+    records["conv3d"]["cudnn_ms"] = records["conv3d"]["library_ms"]
     print(smi)
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda", "source": f"nextou_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": launches, **records[kernel].record(), "path": path}
+         "replaces": replaces, "launches": launches, **records[kernel], "path": path}
         for kernel, (src, replaces, launches, path) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -55,12 +55,16 @@ struct SelectSmem {
 
 // Every thread of the CTA calls this. On return, for each of the warp's rows
 // rr (query row n0 + warp * ROWS_PER_WARP + rr, where that is < N), lane
-// j < k holds the j-th nearest candidate's index in topi[rr].
-template <typename T, bool HAS_REL>
-__device__ __forceinline__ void select_topk(
+// j < k holds the j-th nearest candidate's distance in topd[rr] and its
+// index in topi[rr]. With INSERT false (the dissection tool's modes that
+// take the running top-k out) the distances are computed all the same and
+// each lane keeps only the least of those it saw, in topd[rr]; topi[rr]
+// stays 0.
+template <typename T, bool HAS_REL, bool INSERT>
+__device__ __forceinline__ void select_rows(
     const T* __restrict__ xb, const T* __restrict__ yb,
     const float* __restrict__ rel, int N, int M, int C, int k, int n0,
-    SelectSmem& s, int (&topi)[ROWS_PER_WARP]) {
+    SelectSmem& s, float (&topd)[ROWS_PER_WARP], int (&topi)[ROWS_PER_WARP]) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -68,7 +72,6 @@ __device__ __forceinline__ void select_topk(
   const int ty = tid >> 4;
   const int tx = tid & 15;
 
-  float topd[ROWS_PER_WARP];
 #pragma unroll
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
     topd[r] = INFINITY;
@@ -146,6 +149,10 @@ __device__ __forceinline__ void select_topk(
 #pragma unroll
       for (int g = 0; g < TM; g += 32) {
         const float dl = s.dist[r][g + lane];
+        if (!INSERT) {
+          topd[rr] = fminf(topd[rr], dl);
+          continue;
+        }
         float worst = __shfl_sync(FULL, topd[rr], k - 1);
         unsigned pass = __ballot_sync(FULL, dl < worst);
         while (pass) {  // lowest lane (= lowest index) first
@@ -170,6 +177,16 @@ __device__ __forceinline__ void select_topk(
     }
     __syncthreads();  // dist / xsq / ysq are rewritten by the next chunk
   }
+}
+
+// The selection as K1, K2 and K3 use it: the indices alone.
+template <typename T, bool HAS_REL>
+__device__ __forceinline__ void select_topk(
+    const T* __restrict__ xb, const T* __restrict__ yb,
+    const float* __restrict__ rel, int N, int M, int C, int k, int n0,
+    SelectSmem& s, int (&topi)[ROWS_PER_WARP]) {
+  float topd[ROWS_PER_WARP];
+  select_rows<T, HAS_REL, true>(xb, yb, rel, N, M, C, k, n0, s, topd, topi);
 }
 
 // One warp: the per-channel max over the k rows of vb that the lanes' topi

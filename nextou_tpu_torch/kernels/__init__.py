@@ -1,6 +1,13 @@
+from nextou_tpu_torch.kernels.build import build_kernels
+from nextou_tpu_torch.kernels.conv import (
+    Conv3dKernel,
+    conv3d,
+    conv3d_cuda,
+    conv3d_reference,
+    conv_kernel_wins,
+)
 from nextou_tpu_torch.kernels.knn import (
     KnnMaxTrain,
-    build_kernels,
     knn_indices_cuda,
     knn_indices_reference,
     knn_max_bwd_cuda,

@@ -7,8 +7,8 @@ the per-channel max over those k rows of the raw values. MRConv needs only
 that max, since ``max_j (x_j - x_i) = (max_j x_j) - x_i``.
 
 Kernels (CUDA C++ under ``nextou_tpu_torch/csrc/``, built with ``nvcc`` at
-first use, one library per source) and, beside each, its plain PyTorch
-version:
+first use, one library per source, by ``kernels/build.py``) and, beside
+each, its plain PyTorch version:
 
 - K1 :func:`knn_max_cuda` (``knn_max.cu``): the fused inference forward;
   plain version :func:`knn_max_neighbors_reference`.
@@ -30,14 +30,6 @@ in ``.launches``.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import torch
 
 from nextou_tpu_torch.core.graph import (
@@ -45,90 +37,11 @@ from nextou_tpu_torch.core.graph import (
     dense_knn_reference,
     l2_normalize,
 )
+from nextou_tpu_torch.kernels.build import check_tensors as _check
+from nextou_tpu_torch.kernels.build import library
+from nextou_tpu_torch.kernels.build import ptr as _ptr
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_HEADER = _CSRC / "knn_select.cuh"
-# listed in .gitignore; the checkout builds its own libraries at first use
-_BUILD_DIR = _CSRC.parents[1] / "build" / "kernels"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# library -> exported function -> argument types
-_LIBRARIES = {
-    "knn_max": {"knn_max_forward": [_PTR] * 5 + [_INT] * 6 + [_PTR]},
-    "knn_max_idx": {
-        "knn_max_idx_forward": [_PTR] * 6 + [_INT] * 6 + [_PTR],
-        "knn_indices_forward": [_PTR] * 4 + [_INT] * 5 + [_PTR],
-    },
-    "knn_max_bwd": {"knn_max_backward": [_PTR] * 7 + [_INT] * 6 + [_PTR]},
-}
 K_MAX = 32  # the kernels keep the running top-k in one warp's lanes
-
-
-# --- build ----------------------------------------------------------------------
-
-
-def _library_path(name: str) -> Path:
-    """Where the library of ``csrc/{name}.cu`` goes: one file per content of
-    the source, the shared header and the flags."""
-    content = (_CSRC / f"{name}.cu").read_bytes() + _HEADER.read_bytes()
-    tag = hashlib.sha256(content + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"lib{name}_{tag}.so"
-
-
-def _tmp_path(lib_path: Path) -> Path:
-    return lib_path.with_suffix(f".tmp{os.getpid()}")
-
-
-def _start_build(name: str) -> subprocess.Popen | None:
-    """Start ``nvcc`` on one source unless its library is there already."""
-    lib_path = _library_path(name)
-    if lib_path.exists():
-        return None
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError(f"csrc/{name}.cu needs nvcc to build; none found")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    return subprocess.Popen(
-        [nvcc, *_NVCC_FLAGS, "-o", str(_tmp_path(lib_path)), str(_CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-
-
-def _finish_build(name: str, proc: subprocess.Popen | None) -> str:
-    lib_path = _library_path(name)
-    if proc is None:
-        return f"{lib_path.name}: cached"
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on csrc/{name}.cu:\n{log}")
-    # atomic: a concurrent build never sees half a file
-    os.replace(_tmp_path(lib_path), lib_path)
-    return log
-
-
-@functools.cache
-def _library(name: str) -> ctypes.CDLL:
-    """Build (once per source content) and load one library."""
-    _finish_build(name, _start_build(name))
-    lib = ctypes.CDLL(str(_library_path(name)))
-    for fn_name, argtypes in _LIBRARIES[name].items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def build_kernels() -> dict[str, str]:
-    """Build every kernel library, one ``nvcc`` per source and all started
-    together, and load them. Returns nvcc's report per library."""
-    procs = {name: _start_build(name) for name in _LIBRARIES}
-    logs = {name: _finish_build(name, proc) for name, proc in procs.items()}
-    for name in _LIBRARIES:
-        _library(name)
-    return logs
 
 
 # --- plain versions ---------------------------------------------------------------
@@ -207,23 +120,6 @@ def knn_max_bwd_reference(
 # --- kernel wrappers ------------------------------------------------------------
 
 
-def _check(name: str, tensors: dict, dtypes: dict, shapes: dict) -> torch.device:
-    """Raise on what a kernel does not take: every tensor on one CUDA device,
-    contiguous, of its expected dtype and shape (``None`` entries skipped)."""
-    tensors = {n: t for n, t in tensors.items() if t is not None}
-    dev = next(iter(tensors.values())).device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors.values()):
-        raise ValueError(f"{name}: every tensor must be on one CUDA device")
-    for n, t in tensors.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {n} must be contiguous")
-        if t.dtype not in dtypes[n]:
-            raise ValueError(f"{name}: {n} has dtype {t.dtype}, takes {dtypes[n]}")
-        if tuple(t.shape) != tuple(shapes[n]):
-            raise ValueError(f"{name}: {n} has shape {tuple(t.shape)}, takes {shapes[n]}")
-    return dev
-
-
 def _check_k(name: str, k: int, M: int):
     if not 1 <= k <= min(K_MAX, M):
         raise ValueError(f"{name}: k={k} outside [1, min({K_MAX}, M={M})]")
@@ -240,10 +136,6 @@ def kernel_bias(relative_pos: torch.Tensor | None, k: int, N: int, M: int):
     if relative_pos is None:
         return None
     return relative_pos.detach().to(torch.float32).expand(N, M).contiguous()
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
 
 
 _F32 = (torch.float32,)
@@ -271,7 +163,7 @@ def knn_max_cuda(
         {"xn": (B, N, C), "yn": (B, M, C), "yv": (B, M, C), "rel": (N, M)},
     )
     _check_k("knn_max_cuda", k, M)
-    lib = _library("knn_max")
+    lib = library("knn_max")
     out = torch.empty((B, N, C), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.knn_max_forward(
@@ -310,7 +202,7 @@ def knn_max_idx_cuda(
         {"xn": (B, N, C), "yn": (B, M, C), "yv": (B, M, C), "rel": (N, M)},
     )
     _check_k("knn_max_idx_cuda", k, M)
-    lib = _library("knn_max_idx")
+    lib = library("knn_max_idx")
     out = torch.empty((B, N, C), dtype=torch.float32, device=dev)
     idx = torch.empty((B, N, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -345,7 +237,7 @@ def knn_indices_cuda(
         {"xn": (B, N, C), "yn": (B, M, C), "rel": (N, M)},
     )
     _check_k("knn_indices_cuda", k, M)
-    lib = _library("knn_max_idx")
+    lib = library("knn_max_idx")
     idx = torch.empty((B, N, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.knn_indices_forward(
@@ -380,7 +272,7 @@ def knn_max_bwd_cuda(
         {"yv": (B, M, C), "idx": (B, N, k), "maxv": (B, N, C), "g": (B, N, C)},
     )
     _check_k("knn_max_bwd_cuda", k, M)
-    lib = _library("knn_max_bwd")
+    lib = library("knn_max_bwd")
     gy = torch.empty((B, M, C), dtype=torch.float32, device=dev)
     share = torch.empty((B, N, C), dtype=torch.float32, device=dev)
     bitmap = torch.empty((B, M, (N + 31) // 32), dtype=torch.int32, device=dev)

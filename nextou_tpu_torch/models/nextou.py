@@ -97,9 +97,10 @@ class HybridStage(nn.Sequential):
 
 
 def _stage(n_conv, cin, cout, kernel, stride, gnn, img_shape, spec, table,
-           generator, device):
+           generator, conv_kernel, device):
     convs = StackedConvBlocks(
-        n_conv, cin, cout, kernel, stride, bias=spec.use_bias, device=device
+        n_conv, cin, cout, kernel, stride, bias=spec.use_bias, conv_kernel=conv_kernel,
+        device=device,
     )
     if not gnn:
         return convs
@@ -169,7 +170,8 @@ def _recomputed(fn, modules, generator: torch.Generator, *args):
 
 
 class Encoder(nn.Module):
-    def __init__(self, spec: ModelSpec, table: TableFn, generator, device=None):
+    def __init__(self, spec: ModelSpec, table: TableFn, generator, conv_kernel="0",
+                 device=None):
         super().__init__()
         stages, cin = [], spec.in_channels
         for st in spec.encoder:
@@ -177,7 +179,7 @@ class Encoder(nn.Module):
                 raise NotImplementedError("residual encoder stages are not ported yet")
             stages.append(nn.Sequential(_stage(
                 st.n_conv, cin, st.features, st.kernel_size, st.stride, st.gnn,
-                st.img_shape, spec, table, generator, device,
+                st.img_shape, spec, table, generator, conv_kernel, device,
             )))
             cin = st.features
         self.stages = nn.ModuleList(stages)
@@ -195,7 +197,8 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, spec: ModelSpec, table: TableFn, generator, device=None):
+    def __init__(self, spec: ModelSpec, table: TableFn, generator, conv_kernel="0",
+                 device=None):
         super().__init__()
         d = spec.spatial_dims
         stages, transp, heads = [], [], []
@@ -207,7 +210,7 @@ class Decoder(nn.Module):
             ))
             stages.append(_stage(
                 st.n_conv, 2 * st.features, st.features, st.kernel_size,
-                (1,) * d, st.gnn, st.img_shape, spec, table, generator, device,
+                (1,) * d, st.gnn, st.img_shape, spec, table, generator, conv_kernel, device,
             ))
             heads.append(_CONV[d](st.features, spec.num_classes, 1, device=device))
             cin = st.features
@@ -255,10 +258,15 @@ class NexToU(nn.Module):
     the large ones (:func:`remat_flags`) in the backward pass instead of
     keeping their activations. ``generator`` (CPU) feeds DropPath and the
     stochastic dilated graphs in training mode.
+
+    ``conv_kernel`` in {"0", "1", "s1", "s2"} hands the stages' (3, 3, 3)
+    convs that lie in the conv kernel's region to it (``nn/conv_blocks.py``):
+    none, all, the stride-1 ones or the strided ones. A recomputed stage
+    launches the kernel again in the backward pass.
     """
 
     def __init__(self, spec: ModelSpec, *, dtype: torch.dtype = torch.float32,
-                 remat=False, device=None):
+                 remat=False, conv_kernel: str = "0", device=None):
         super().__init__()
         if spec.stem_features is not None:
             raise NotImplementedError("the residual encoder stem is not ported yet")
@@ -275,8 +283,8 @@ class NexToU(nn.Module):
                 tables[key] = torch.tensor(rel, device=device)[None]
             return tables[key]
 
-        self.encoder = Encoder(spec, table, self.generator, device)
-        self.decoder = Decoder(spec, table, self.generator, device)
+        self.encoder = Encoder(spec, table, self.generator, conv_kernel, device)
+        self.decoder = Decoder(spec, table, self.generator, conv_kernel, device)
 
     def forward(self, x: torch.Tensor):
         s = self.spec

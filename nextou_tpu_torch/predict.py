@@ -7,12 +7,14 @@ device-resident Gaussian sliding window; ``{case}.npz`` gets ``seg``.
 
     python -m nextou_tpu_torch.predict MODEL_FOLDER DATASET_FOLDER CONFIGURATION \\
         -o OUTPUT [-tr nnUNetTrainer_NexToU] [-chk checkpoint_final.pth]
+        [--conv-kernel {0,1,s1,s2}] [--device cpu]
 
 The checkpoint is a torch file holding ``{'network_weights': state_dict}``
 under upstream NexToU's parameter names, the layout of upstream nnU-Net
 checkpoints; their DDP/compile prefixes and alias keys are stripped
 (:func:`~nextou_tpu_torch.compat.weights.extract_network_weights`). Computes
-in bf16 on a CUDA device and in f32 on the CPU.
+in bf16 on a CUDA device, which is where it runs unless ``--device cpu`` asks
+for the CPU (f32): without a card and without that option it fails.
 
 Not ported yet: ``--raw`` NIfTI input, fold ensembles, cascades,
 postprocessing, ``--save-probabilities``, and loading a ``nextou_tpu``
@@ -34,6 +36,7 @@ from nextou_tpu_torch.data.dataset import PreprocessedDataset
 from nextou_tpu_torch.infer.sliding_window import make_device_sliding_predictor
 from nextou_tpu_torch.models.nextou import NexToU
 from nextou_tpu_torch.models.spec import ModelSpec, build_model_spec
+from nextou_tpu_torch.nn.conv_blocks import CONV_KERNEL_MODES
 from nextou_tpu_torch.plans.loader import PlansManager, load_dataset_json
 
 # the seven public NexToU trainer names; the _NoMirroring ones predict
@@ -82,9 +85,11 @@ def compute_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
-def load_model(spec: ModelSpec, checkpoint: str, device: torch.device) -> NexToU:
-    """Build the network on ``device`` and load ``checkpoint``'s weights."""
-    model = NexToU(spec, dtype=compute_dtype(device), device=device)
+def load_model(spec: ModelSpec, checkpoint: str, device: torch.device,
+               conv_kernel: str = "0") -> NexToU:
+    """Build the network on ``device`` and load ``checkpoint``'s weights;
+    ``conv_kernel`` as :class:`~nextou_tpu_torch.models.nextou.NexToU` takes it."""
+    model = NexToU(spec, dtype=compute_dtype(device), conv_kernel=conv_kernel, device=device)
     ckpt = torch.load(checkpoint, map_location=device, weights_only=True)
     model.load_state_dict(extract_network_weights(ckpt))
     return model.eval()
@@ -156,14 +161,19 @@ def main(argv=None):
     ap.add_argument("--tile-batch", type=int, default=2)
     ap.add_argument("-step_size", "--step-size", type=float, default=0.5)
     ap.add_argument("--disable-tta", "--disable_tta", action="store_true")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--conv-kernel", choices=CONV_KERNEL_MODES, default="0",
+                    help="hand the convs of the hand-written conv kernel's region to it: "
+                    "all (1), the stride-1 ones (s1) or the strided ones (s2)")
+    ap.add_argument("--device", default="cuda",
+                    help="the card by default; 'cpu' computes on the CPU in f32")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
     plans, dataset_json, spec = load_dataset(args.dataset_folder, args.configuration)
     labels = plans.get_label_manager(dataset_json)
     mirror = mirror_axes_for(args.trainer, spec.spatial_dims)
-    model = load_model(spec, os.path.join(args.model_folder, args.chk), device)
+    model = load_model(spec, os.path.join(args.model_folder, args.chk), device,
+                       args.conv_kernel)
     regions = labels.has_regions
     predictor = build_predictor(
         model, None if args.disable_tta else mirror,

@@ -1,6 +1,6 @@
 """Profile one flagship NexToU forward on a CUDA card.
 
-    python -m nextou_tpu_torch.tools.profile_forward
+    python -m nextou_tpu_torch.tools.profile_forward [--conv-kernel {0,1,s1,s2}]
 
 The forward of the serving path: ``3d_fullres_nextou`` with seeded random
 weights, bf16, a batch of 4 patches (2 tiles x 2 mirror variants, as the
@@ -12,16 +12,19 @@ largest kernels and the peak device memory.
 
 from __future__ import annotations
 
-import subprocess
+import argparse
 import sys
 import time
 
 import torch
 
+from nextou_tpu_torch.tools.timing import card, require_card
+
 BATCH, WARMUP, TIMED, PROFILED, TOP = 4, 2, 5, 3, 20
 # kernel name fragment -> group; the first match wins
 GROUPS = (
-    ("knn_max_kernel", "K1 knn_max"),
+    ("knn_max_kernel", "K1 knn_max"), ("conv3d_mma_kernel", "K5 conv3d"),
+    ("conv3d_fma_kernel", "K5 conv3d"), ("pack_weights_kernel", "K5 conv3d"),
     ("conv", "conv (cuDNN)"), ("xmma", "conv (cuDNN)"), ("Nhwc", "conv (cuDNN)"),
     ("nhwc", "conv (cuDNN)"), ("nchw", "conv (cuDNN)"), ("sgemm", "conv (cuDNN)"),
     ("gemm", "matmul (cuBLAS)"),
@@ -66,21 +69,29 @@ def profile(fn, n: int, groups=GROUPS, unit: str = "forward", top: int = TOP) ->
         print(f"  {t / n:8.2f} ms  x {c // n:4d}  {name[:110]}")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_forward: no CUDA card visible", file=sys.stderr)
+def conv_kernel_arg(description: str, argv=None) -> str:
+    """The ``--conv-kernel`` mode of a profile's command line."""
+    from nextou_tpu_torch.nn.conv_blocks import CONV_KERNEL_MODES
+
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("--conv-kernel", choices=CONV_KERNEL_MODES, default="0",
+                    help="profile with the hand-written conv kernel on its region")
+    return ap.parse_args(argv).conv_kernel
+
+
+def main(argv=None) -> int:
+    conv_kernel = conv_kernel_arg(__doc__.split("\n\n")[0], argv)
+    if not require_card("profile_forward"):
         return 1
     from nextou_tpu_torch.models import NexToU
     from nextou_tpu_torch.models.presets import flagship_3d_spec
     from nextou_tpu_torch.utils import init_weights
 
     dev = torch.device("cuda", 0)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip())
+    print(card())
     spec = flagship_3d_spec(num_classes=14, deep_supervision=False)
-    model = init_weights(NexToU(spec, dtype=torch.bfloat16, device=dev), seed=0).eval()
+    model = init_weights(
+        NexToU(spec, dtype=torch.bfloat16, conv_kernel=conv_kernel, device=dev), seed=0).eval()
     gen = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(BATCH, *spec.patch_size, spec.in_channels, generator=gen,
                     device=dev, dtype=torch.bfloat16)
@@ -97,7 +108,7 @@ def main() -> int:
     for _ in range(TIMED):
         forward()
     torch.cuda.synchronize()
-    print(f"forward batch {BATCH} bf16: {(time.perf_counter() - t0) / TIMED * 1e3:.1f} ms "
+    print(f"forward batch {BATCH} bf16, conv_kernel={conv_kernel}: {(time.perf_counter() - t0) / TIMED * 1e3:.1f} ms "
           f"(host clock, {TIMED} forwards)")
 
     profile(forward, PROFILED)

@@ -1,6 +1,6 @@
 """Profile the flagship NexToU train step on a CUDA card.
 
-    python -m nextou_tpu_torch.tools.profile_train
+    python -m nextou_tpu_torch.tools.profile_train [--conv-kernel {0,1,s1,s2}]
 
 The train step of ``chip_smoke.py``: ``3d_fullres_nextou`` with deep
 supervision and seeded random weights, batch 2, bf16 compute and f32
@@ -12,7 +12,6 @@ time, the largest kernels and the peak device memory.
 
 from __future__ import annotations
 
-import subprocess
 import sys
 import time
 
@@ -20,7 +19,8 @@ import numpy as np
 import torch
 
 from nextou_tpu_torch.tools.profile_forward import GROUPS as FORWARD_GROUPS
-from nextou_tpu_torch.tools.profile_forward import profile
+from nextou_tpu_torch.tools.profile_forward import conv_kernel_arg, profile
+from nextou_tpu_torch.tools.timing import card, require_card
 
 BATCH, WARMUP, TIMED, PROFILED, TOP = 2, 2, 3, 2, 25
 # kernel name fragment -> group; the first match wins
@@ -32,9 +32,9 @@ GROUPS = (
 )
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_train: no CUDA card visible", file=sys.stderr)
+def main(argv=None) -> int:
+    conv_kernel = conv_kernel_arg(__doc__.split("\n\n")[0], argv)
+    if not require_card("profile_train"):
         return 1
     from nextou_tpu_torch.losses import CompoundLossSpec, deep_supervision_weights
     from nextou_tpu_torch.models import NexToU
@@ -44,12 +44,9 @@ def main() -> int:
     )
 
     dev = torch.device("cuda", 0)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip())
+    print(card())
     spec = flagship_3d_spec(num_classes=14, deep_supervision=True)
-    model = NexToU(spec, dtype=torch.bfloat16, device=dev)
+    model = NexToU(spec, dtype=torch.bfloat16, conv_kernel=conv_kernel, device=dev)
     opt = make_optimizer(poly_lr(1e-2, 1000, 0.9, steps_per_epoch=250))
     state = create_train_state(model, opt, seed=0)
     step = make_train_step(model, opt, CompoundLossSpec(),
@@ -70,7 +67,7 @@ def main() -> int:
     for _ in range(TIMED):
         state, _ = step(state, batch)
     torch.cuda.synchronize()
-    print(f"train step batch {BATCH} bf16, Dice+CE: "
+    print(f"train step batch {BATCH} bf16, Dice+CE, conv_kernel={conv_kernel}: "
           f"{(time.perf_counter() - t0) / TIMED:.4f} s (host clock, {TIMED} steps)")
     print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
 

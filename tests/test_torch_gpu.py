@@ -1,5 +1,5 @@
-"""The hand-written kernels K1-K4 (``nextou_tpu_torch/csrc/``) against their
-plain PyTorch versions on a CUDA card. Imports no jax, so that it runs on a machine with the
+"""The hand-written kernels K1-K5 and the probes' (``nextou_tpu_torch/csrc/``)
+against their plain PyTorch versions on a CUDA card. Imports no jax, so that it runs on a machine with the
 card and without jax:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -182,3 +182,65 @@ def test_train_dispatch_on_gpu():
         assert (idx.sort(-1).values != want.sort(-1).values).any(-1).float().mean() <= 1e-3
     with pytest.raises(NotImplementedError):
         dense_knn(xn, 33)
+
+
+# --- K5 and the tool probes on the card -----------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_matches_plain_on_gpu(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("K5 is CUDA code: needs a CUDA card")
+    from nextou_tpu_torch.kernels.conv import conv3d, conv3d_cuda, conv3d_reference
+    from nextou_tpu_torch.tools.exp_conv_v2 import CHECK_CASES, library_conv, seeded_case
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    for B, spatial, C, Co, kernel, stride in CHECK_CASES:
+        x, w = seeded_case(B, spatial, C, Co, kernel, dtype, dev)
+        before = conv3d_cuda.launches
+        got = conv3d(x, w, stride)
+        torch.cuda.synchronize()
+        assert conv3d_cuda.launches == before + 1
+        want = conv3d_reference(x, w, stride)
+        assert got.dtype == dtype and got.shape == want.shape
+        # f32: the order of an f32 sum over at most 27 * 35 terms of size
+        # <= 1; bf16: one rounding of the output (2^-8 relative) on top
+        tol = dict(rtol=0, atol=1e-4) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+        torch.testing.assert_close(got, want, **tol)
+        torch.testing.assert_close(got.float(), library_conv(x, w, stride).float(),
+                                   rtol=tol["rtol"], atol=10 * tol["atol"])
+    # the backward is the library conv's: the same gradients for the same
+    # cotangent, up to the order in which cuDNN's backward kernels add (two
+    # calls of one backward need not give the same bits)
+    x, w = seeded_case(1, (4, 16, 40), 6, 5, (3, 3, 3), torch.float32, dev)
+    x.requires_grad_(), w.requires_grad_()
+    g = torch.randn(1, 5, 4, 8, 20, device=dev)
+    got = torch.autograd.grad(conv3d(x, w, (1, 2, 2)), (x, w), g)
+    want = torch.autograd.grad(library_conv(x, w, (1, 2, 2)), (x, w), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError):
+        conv3d(x, w.bfloat16(), (1, 1, 1))  # one dtype for both
+    with pytest.raises(ValueError):
+        conv3d(x, w, (3, 1, 1))
+
+
+@pytest.mark.gpu
+def test_tool_probes_match_their_oracles_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("the probes' kernels are CUDA code: they need a CUDA card")
+    from nextou_tpu_torch.tools import exp_conv_probe, exp_knn_dissect
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for transpose_out in (False, True):
+        assert exp_conv_probe.run(dev, transpose_out)["err"] < exp_conv_probe.TOLERANCE
+    x, y, xn, yn, rel = exp_knn_dissect.dissect_inputs(3, 300, 1344, 40, dev)
+    got = exp_knn_dissect.knn_dissect_cuda(xn, yn, y, rel, 9, "full")
+    want = knn_max_neighbors_reference(x, 9, y, rel, train=True).float()
+    assert (got != want).any(-1).float().mean().item() <= 1e-3
+    for mode in ("nosel", "nominext", "distonly"):  # they launch; their outputs mean nothing
+        out = exp_knn_dissect.knn_dissect_cuda(xn, yn, y, rel, 9, mode)
+        assert out.shape == got.shape and torch.isfinite(out).all()

@@ -145,3 +145,21 @@ def test_init_weights_is_seeded_he_normal():
     assert abs(w.std().item() / (HE_GAIN_SQ / fan_in) ** 0.5 - 1) < 0.1
     assert torch.all(a["encoder.stages.0.0.convs.0.norm.weight"] == 1)
     assert torch.all(a["encoder.stages.0.0.convs.0.conv.bias"] == 0)
+
+
+def test_conv_kernel_mode_is_off_by_default_and_adds_no_parameters(monkeypatch):
+    from nextou_tpu_torch.nn import conv_blocks
+
+    calls = []
+    monkeypatch.setattr(conv_blocks, "conv3d", lambda *a: calls.append(a))
+    spec = presets.small_3d_spec(features=(6, 12, 12, 12, 12, 12), deep_supervision=False)
+    default, on = NexToU(spec), NexToU(spec, conv_kernel="1")
+    assert default.state_dict().keys() == on.state_dict().keys()
+    modes = {m.conv_kernel for m in default.modules() if hasattr(m, "conv_kernel")}
+    assert modes == {"0"}
+    assert {m.conv_kernel for m in on.modules() if hasattr(m, "conv_kernel")} == {"1"}
+    x = torch.zeros(1, *spec.patch_size, 1)
+    with torch.no_grad():
+        default.eval()(x)
+        on.eval()(x)  # none of this network's convs lies in the kernel's region
+    assert not calls

@@ -125,6 +125,34 @@ def test_predict_cli_end_to_end(tmp_path):
     assert np.mean(np.argmax(probs, -1) == seg) >= 0.999
 
 
+def test_predict_main_defaults_to_the_card(tmp_path):
+    """Without ``--device`` the CLI computes on the card and fails where
+    there is none; it does not carry on on the CPU. ``--device cpu`` passes,
+    and takes ``--conv-kernel`` (no conv of this small network lies in the
+    kernel's region: tests/test_torch_conv.py runs that path)."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour where there is no card")
+    from nextou_tpu_torch import predict
+
+    spec = presets.small_3d_spec(deep_supervision=False)
+    data_dir, model_dir, out_dir = (tmp_path / d for d in ("data", "model", "out"))
+    data_dir.mkdir()
+    model_dir.mkdir()
+    _write_dataset(str(data_dir), spec, spec.patch_size)
+    torch.save({"network_weights": init_weights(NexToU(spec), seed=0).state_dict()},
+               model_dir / "checkpoint_final.pth")
+    args = [str(model_dir), str(data_dir), "3d_small", "-o", str(out_dir),
+            "-tr", "nnUNetTrainer_NexToU_NoMirroring"]
+    with pytest.raises((RuntimeError, AssertionError)):  # torch's own: no CUDA device
+        predict.main(args)
+    assert not (out_dir / "case_000.npz").exists()
+    predict.main(args + ["--device", "cpu", "--conv-kernel", "1"])
+    with np.load(out_dir / "case_000.npz") as z:
+        assert z["seg"].shape == tuple(spec.patch_size)
+    with pytest.raises(SystemExit):
+        predict.main(args + ["--device", "cpu", "--conv-kernel", "2"])
+
+
 def test_load_model_strips_upstream_wrappers(tmp_path):
     """An upstream checkpoint's DDP/compile prefixes and alias keys load."""
     from nextou_tpu_torch.predict import load_model
@@ -152,6 +180,8 @@ def test_port_imports_neither_jax_nor_flax():
         "names = [m.name for m in pkgutil.walk_packages(nextou_tpu_torch.__path__, 'nextou_tpu_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
         "assert len(names) > 30, names\n"
+        "new = ['kernels.build', 'kernels.conv', 'tools.exp_conv_v2', 'tools.exp_conv_probe', 'tools.exp_knn_dissect']\n"
+        "assert all('nextou_tpu_torch.' + n in names for n in new), names\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'nextou_tpu')))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -424,3 +424,26 @@ def test_train_state_saves_and_restores(tmp_path):
         assert torch.equal(a, b), name
     for a, b in zip(state.momentum, other.momentum):
         assert torch.equal(a, b)
+
+
+def test_eval_step_with_the_conv_kernel_on_matches_off(monkeypatch):
+    """Eval mode on the tiny network, every (3, 3, 3) conv through the conv
+    kernel's path (on the CPU its plain version): the loss within rtol 1e-5
+    of the library convs' (measured 1.4e-6), the hard-Dice statistics equal."""
+    from nextou_tpu_torch.nn import conv_blocks
+
+    monkeypatch.setattr(conv_blocks, "conv_kernel_wins",
+                        lambda sp, c, co, kernel, stride: tuple(kernel) == (3, 3, 3))
+    spec = build_model_spec(**_tiny_spec_kwargs())
+    rng = np.random.default_rng(6)
+    batch = {"data": rng.standard_normal((2, *spec.patch_size, 1)).astype(np.float32),
+             "seg": rng.integers(0, 3, (2, *spec.patch_size))}
+    weights = pl.deep_supervision_weights(len(spec.decoder))
+    out = {}
+    for mode in ("0", "1"):
+        model = NexToU(spec, conv_kernel=mode)
+        state = pt.create_train_state(model, pt.make_optimizer(), 2)
+        out[mode] = pt.make_eval_step(model, pl.CompoundLossSpec(), weights)(state, batch)
+    np.testing.assert_allclose(out["1"]["loss"].item(), out["0"]["loss"].item(), rtol=1e-5)
+    for key in ("tp", "fp", "fn"):
+        assert torch.equal(out["1"][key], out["0"][key]), key
