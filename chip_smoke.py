@@ -75,7 +75,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     small cases), T2's row-patch probe in both output orders against its
     numpy oracle (max error under 1e-4), T1's dissection of K1 at its two
     shapes (mode ``full`` against the plain version, at most 0.1% of rows
-    off; the five modes' times printed).
+    off; the five modes' times printed);
+13. T3, the channels-last conv, through its tool: ``check`` and ``check3``
+    (both entry points, ``pallas_conv`` and ``csub_conv``, in f32 and bf16,
+    against the plain version and ``F.conv3d``; f32 within 1e-4 x max(1,
+    |y|), bf16 within one rounding of the output, 2^-7 of the value +
+    1e-3), then every case of the JAX tool's ``CASES`` in bf16 at full size
+    beside ``F.conv3d`` on ``channels_last_3d`` tensors (TF32 off), the
+    plain version and the bound;
+14. the trainer: five labelled 1x64x280x240 cases with all 14 labels go
+    through ``nextou_tpu_torch.run_training.main`` (``nnUNetTrainer_NexToU``,
+    fold 0, 2 epochs of 4 iterations, 50 eval steps per epoch, then the
+    final validation), and ``predict.main`` serves its
+    ``checkpoint_final.pth``. K3 and K4 launched exactly 14 times per train
+    step, K1 14 times per eval and per validation forward, K5 never; the
+    remat choice logged with its estimate; losses finite; checkpoints,
+    ``training_log.txt`` and ``validation/summary.json`` written; seconds
+    per epoch and per iteration, the share of the train loop spent waiting
+    in ``next(train_it)``, the host's cores and loader threads, peak device
+    memory; then the host loader alone, seconds per augmented batch.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record, each entry with the path its numbers were taken
@@ -462,10 +480,17 @@ def dilated_kernel_phase(spec, dev) -> Totals:
     return total
 
 
-def write_dataset(folder: str, spec, configuration: str, cases: int, shape, seed: int):
+def write_dataset(folder: str, spec, configuration: str, cases: int, shape, seed: int,
+                  labelled: bool = False):
     """A preprocessed dataset folder (plans, dataset.json, cases) for ``spec``,
     in the plans format nnU-Net writes; each case is ``{case}.npz`` with
-    ``data`` (C, *sp) f32 and ``seg`` (*sp) int16, the preprocessed layout."""
+    ``data`` (C, *sp) f32 and ``seg`` (*sp) int16, the preprocessed layout.
+    Without ``labelled`` the labels are all background and the data noise;
+    with it every label is present (regions of a coarse random partition,
+    16 x 40 x 40 voxels a cell) and the data is the label's intensity plus
+    noise, saved with the foreground locations the sampler oversamples."""
+    from nextou_tpu_torch.data.dataset import save_case
+
     cfg = {
         "batch_size": 2, "patch_size": list(spec.patch_size),
         "spacing": [1.0] * spec.spatial_dims,
@@ -481,6 +506,7 @@ def write_dataset(folder: str, spec, configuration: str, cases: int, shape, seed
     }
     plans = {"dataset_name": "Dataset999_Smoke", "plans_name": "nnUNetPlans",
              "configurations": {configuration: cfg}}
+    os.makedirs(folder, exist_ok=True)
     with open(os.path.join(folder, "nnUNetPlans.json"), "w") as f:
         json.dump(plans, f)
     labels = {"background": 0, **{f"organ{i}": i for i in range(1, spec.num_classes)}}
@@ -489,9 +515,20 @@ def write_dataset(folder: str, spec, configuration: str, cases: int, shape, seed
                    "file_ending": ".nii.gz"}, f)
     rng = np.random.default_rng(seed)
     for i in range(cases):
-        np.savez(os.path.join(folder, f"case_{i:03d}.npz"),
-                 data=rng.standard_normal((1, *shape), dtype=np.float32),
-                 seg=np.zeros(shape, np.int16))
+        if not labelled:
+            np.savez(os.path.join(folder, f"case_{i:03d}.npz"),
+                     data=rng.standard_normal((1, *shape), dtype=np.float32),
+                     seg=np.zeros(shape, np.int16))
+            continue
+        cell = (16, 40, 40)
+        coarse = rng.standard_normal((spec.num_classes, *(-(-n // c) for n, c in zip(shape, cell))))
+        seg = np.argmax(coarse, 0).astype(np.int16)
+        for axis, c in enumerate(cell):
+            seg = np.repeat(seg, c, axis=axis)
+        seg = np.ascontiguousarray(seg[tuple(slice(0, n) for n in shape)])
+        assert len(np.unique(seg)) == spec.num_classes, "a label is missing"
+        data = (seg / (spec.num_classes - 1) - 0.5 + rng.normal(0, 0.3, shape)).astype(np.float32)
+        save_case(folder, f"case_{i:03d}", data[None], seg)
 
 
 def slice_phase(dev, tmp: str, spec, shape) -> dict:
@@ -504,7 +541,6 @@ def slice_phase(dev, tmp: str, spec, shape) -> dict:
 
     n_cases, config = 2, "3d_fullres_nextou"
     data_dir, model_dir, out_dir = (os.path.join(tmp, d) for d in ("data", "model", "out"))
-    os.makedirs(data_dir)
     os.makedirs(model_dir)
     write_dataset(data_dir, spec, config, n_cases, shape, seed=1)
     t0 = time.time()
@@ -1105,6 +1141,146 @@ def tools_phase(dev) -> dict:
             "dissect_launches": exp_knn_dissect.knn_dissect_cuda.launches}
 
 
+def conv_cl_phase(dev) -> tuple[Totals, int]:
+    """T3 through the tool's own functions: ``check`` and ``check3`` (both
+    entry points, f32 and bf16, against the plain version and the library
+    conv), then every case of the JAX tool's ``CASES`` in bf16 at full size,
+    timed beside ``F.conv3d`` on ``channels_last_3d`` tensors, the plain
+    version and the bound (2 N S_out taps C Co operations at the bf16 tensor
+    cores' peak, or the bytes). Returns the sums and the kernel's launches in
+    the tool's run."""
+    from nextou_tpu_torch.tools import exp_conv_kernel as t3
+
+    t3.conv_cl_cuda.launches = 0
+    t3.check(dev)
+    t3.check3(dev)
+    totals = Totals()
+    for name, shape, co, kernel, stride in t3.CASES:
+        r = t3.time_case(t3.pallas_conv, shape, co, kernel, stride, dev)
+        bound, by = bound_ms(r["bytes"], r["flops"], PEAK_BF16_FLOPS)
+        totals.add(1, r["ms"], r["plain_ms"], bound, by, r["max_abs_err"], r["library_ms"])
+        print(f"conv_cl {name} {shape}->{co} k{kernel} s{stride} bf16: {r['ms']:.3f} ms "
+              f"({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s)  F.conv3d channels_last "
+              f"{r['library_ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  bound {bound:.4f} ms ({by})  "
+              f"max|err| {r['max_abs_err']:.3g}")
+    launches = t3.conv_cl_cuda.launches
+    print(f"conv_cl over the {len(t3.CASES)} cases: {totals.ms:.3f} ms, F.conv3d "
+          f"{totals.library_ms:.3f} ms, plain {totals.plain_ms:.3f} ms, bound "
+          f"{totals.bound_ms:.3f} ms; {launches} launches in the tool's run")
+    return totals, launches
+
+
+# the trainer phase: 5 cases of 1x64x280x240, fold 0 (4 training cases, 1
+# validation case), 2 epochs of 4 iterations at the reference's 50
+# validation iterations per epoch
+TRAIN_CASES, TRAIN_SHAPE, EPOCHS, ITERS = 5, (64, 280, 240), 2, 4
+LOADER_BATCHES = 8
+
+
+def trainer_phase(dev, tmp: str) -> dict:
+    """The trainer at the flagship's full width through
+    ``nextou_tpu_torch.run_training.main``, then ``predict.main`` on its
+    ``checkpoint_final.pth``."""
+    from nextou_tpu_torch import predict, run_training
+    from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda
+    from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda
+    from nextou_tpu_torch.models.presets import flagship_3d_spec
+
+    config, spec = "3d_fullres_nextou", flagship_3d_spec(num_classes=14)
+    data_dir = os.path.join(tmp, "train_data")
+    t0 = time.time()
+    write_dataset(data_dir, spec, config, TRAIN_CASES, TRAIN_SHAPE, seed=50, labelled=True)
+    print(f"{TRAIN_CASES} labelled cases {TRAIN_SHAPE} written in {time.time() - t0:.1f} s")
+    counters = (knn_max_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda)
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    trainer = run_training.main([data_dir, config, "0", "-tr", "nnUNetTrainer_NexToU",
+                                 "--epochs", str(EPOCHS), "--iters", str(ITERS),
+                                 "--device", str(dev)])
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    k1, k3, k4, k5 = (c.launches for c in counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = trainer.output_folder
+
+    _, val = trainer.get_split()
+    tiles = math.prod(len(s) for s in compute_sliding_window_steps(TRAIN_SHAPE, spec.patch_size))
+    val_forwards = len(val.case_ids) * math.ceil(tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
+    steps, evals = EPOCHS * ITERS, EPOCHS * trainer.num_val_iterations_per_epoch
+    print(f"run_training.main: {EPOCHS} epochs x {ITERS} iterations, {evals} eval steps, "
+          f"validation of {len(val.case_ids)} case(s) ({val_forwards} forwards): {main_s:.2f} s "
+          f"incl. model build; remat {trainer.remat!r}; K3 {k3}, K4 {k4}, K1 {k1}, K5 {k5} "
+          f"launches; peak device memory {peak / 2**30:.2f} GiB")
+    if trainer.remat is not False:
+        raise AssertionError(f"auto remat chose {trainer.remat!r} for the flagship at batch 2")
+    if (k3, k4, k1, k5) != (14 * steps, 14 * steps, 14 * (evals + val_forwards), 0):
+        raise AssertionError(f"trainer launches: K3 {k3} K4 {k4} K1 {k1} K5 {k5}")
+    with open(os.path.join(out, "training_log.txt")) as f:
+        log = f.read()
+    remat_line = next((line for line in log.splitlines() if "auto remat:" in line), None)
+    if remat_line is None or "activation estimate" not in remat_line:
+        raise AssertionError("the trainer did not log its remat choice with its estimate")
+    print(f"  {remat_line.split(' ', 2)[2]}")
+    for e in trainer.log_history:
+        per_iter = e["train_time_s"] / ITERS
+        print(f"epoch {e['epoch']}: train_loss {e['train_loss']:.4f} val_loss {e['val_loss']:.4f} "
+              f"ema {e['ema_pseudo_dice']:.4f}; {e['epoch_time_s']:.2f} s per epoch, train "
+              f"{e['train_time_s']:.2f} s = {per_iter:.3f} s per iteration, waiting in "
+              f"next(train_it) {e['loader_wait_s']:.2f} s = "
+              f"{e['loader_wait_s'] / e['train_time_s']:.3f} of the train loop")
+        if not (math.isfinite(e["train_loss"]) and math.isfinite(e["val_loss"])):
+            raise AssertionError(f"epoch {e['epoch']}: a loss is not finite")
+    print(f"host: os.cpu_count() {os.cpu_count()}, loader threads {trainer.loader_threads}")
+    for name in ("checkpoint_final.pth", "checkpoint_best.pth", "training_log.txt",
+                 "validation/summary.json"):
+        if not os.path.exists(os.path.join(out, name)):
+            raise AssertionError(f"the trainer wrote no {name}")
+    with open(os.path.join(out, "validation", "summary.json")) as f:
+        summary = json.load(f)
+    print(f"validation/summary.json: foreground mean Dice {summary['foreground_mean']['Dice']:.4f}")
+
+    # predict.main serves the trainer's checkpoint_final.pth
+    pred_dir = os.path.join(tmp, "train_pred")
+    knn_max_cuda.launches = 0
+    predict.main([out, data_dir, config, "-tr", "nnUNetTrainer_NexToU", "-o", pred_dir,
+                  "--cases", *val.case_ids, "--tile-batch", str(TILE_BATCH), "--device", str(dev)])
+    torch.cuda.synchronize()
+    if knn_max_cuda.launches != 14 * val_forwards:
+        raise AssertionError(f"predict.main launched K1 {knn_max_cuda.launches} times")
+    for cid in val.case_ids:
+        with np.load(os.path.join(pred_dir, f"{cid}.npz")) as z:
+            seg = z["seg"]
+        with np.load(os.path.join(out, "validation", f"{cid}.npz")) as z:
+            agree = float(np.mean(seg == z["seg"]))
+        print(f"predict.main on checkpoint_final.pth, {cid}: labels {np.unique(seg).tolist()}, "
+              f"the trainer's validation label on {agree:.6f} of voxels")
+        if seg.shape != TRAIN_SHAPE or seg.max() >= spec.num_classes or agree < 0.99:
+            raise AssertionError(f"predict.main on the trained checkpoint: {cid}")
+
+    # the host loader alone: seconds per augmented batch once its queue has
+    # drained, beside the seconds per train step
+    loader, _ = trainer.get_dataloaders()
+    with loader:
+        it = iter(loader)
+        for _ in range(loader.prefetch + 1):
+            next(it)
+        t0 = time.perf_counter()
+        for _ in range(LOADER_BATCHES):
+            next(it)
+        per_batch = (time.perf_counter() - t0) / LOADER_BATCHES
+    print(f"host loader alone ({trainer.loader_threads} threads, {os.cpu_count()} cores): "
+          f"{per_batch:.3f} s per augmented batch of {trainer.batch_size} over {LOADER_BATCHES} "
+          f"batches")
+    last = trainer.log_history[-1]
+    return {"k1": k1, "k3": k3, "k4": k4, "s_per_iter": last["train_time_s"] / ITERS,
+            "wait_share": last["loader_wait_s"] / last["train_time_s"], "peak_bytes": peak,
+            "loader_s_per_batch": per_batch}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -1146,8 +1322,13 @@ def main() -> int:
                            tr["first_loss"])
     torch.cuda.empty_cache()
     k2_launches = small_train_phase(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = trainer_phase(dev, tmp)
+    torch.cuda.empty_cache()
     tools = tools_phase(dev)
     records["conv_probe"], records["knn_dissect"] = tools["conv_probe"], tools["knn_dissect"]
+    records["conv_cl"], conv_cl_launches = conv_cl_phase(dev)
 
     # each kernel's numbers belong to the path that runs it ("path"): K1 to
     # predict.main on the flagship, K3 and K4 to the flagship's train steps,
@@ -1155,14 +1336,14 @@ def main() -> int:
     # the flagship with conv_kernel="1" (its launches: one served volume and
     # two train steps), the probes' kernels to their tools
     sources = {
-        "knn_max": ("knn_max.cu", "nextou_tpu/kernels/knn.py:40", sl["launches"],
-                    "flagship predict"),
+        "knn_max": ("knn_max.cu", "nextou_tpu/kernels/knn.py:40", sl["launches"] + trained["k1"],
+                    "flagship predict; the trainer's eval steps and validation"),
         "knn_indices": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:184", k2_launches,
                         "small dilated network, train steps"),
-        "knn_max_idx": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:278", tr["k3"],
-                        "flagship train steps"),
-        "knn_max_bwd": ("knn_max_bwd.cu", "nextou_tpu/kernels/knn.py:384", tr["k4"],
-                        "flagship train steps"),
+        "knn_max_idx": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:278", tr["k3"] + trained["k3"],
+                        "flagship train steps; the trainer's"),
+        "knn_max_bwd": ("knn_max_bwd.cu", "nextou_tpu/kernels/knn.py:384", tr["k4"] + trained["k4"],
+                        "flagship train steps; the trainer's"),
         "conv3d": ("conv3d.cu", "nextou_tpu/kernels/conv.py:90",
                    sl5["launches"] + tr5["launches"],
                    "flagship predict and train steps with conv_kernel='1'"),
@@ -1170,6 +1351,8 @@ def main() -> int:
                        "tools.exp_conv_probe, both output orders"),
         "knn_dissect": ("knn_dissect.cu", "tools/exp_knn_dissect.py:27", tools["dissect_launches"],
                         "tools.exp_knn_dissect, mode full at its two shapes"),
+        "conv_cl": ("conv_cl.cu", "tools/exp_conv_kernel.py:37", conv_cl_launches,
+                    "tools.exp_conv_kernel: check, check3 (csub_conv, kernel :359) and CASES"),
     }
     records = {kernel: totals.record() for kernel, totals in records.items()}
     records["conv3d"]["cudnn_ms"] = records["conv3d"]["library_ms"]

@@ -55,9 +55,9 @@
 // every lane) for 64 FMAs. The chunk is as many channels as fit 96 KB, so
 // two CTAs share an SM and one stages while the other multiplies.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stddef.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -199,57 +199,11 @@ cudaError_t launch_fma(const void* x, const void* w, void* out, int B, Geometry 
 
 constexpr int MMA_WARPS = 8;    // one output row of the tile each
 constexpr int MMA_THREADS = MMA_WARPS * 32;
-constexpr int KC = 16;          // input channels per chunk: one k16 step per tap
-constexpr int KW2 = KC / 2;     // ... as 32-bit words of two bf16
+constexpr int KC = MMA_KC;      // input channels per chunk: one k16 step per tap
+constexpr int KW2 = MMA_KW2;    // ... as 32-bit words of two bf16
 constexpr int NT = TCO / 8;     // n8 tiles of output channels per CTA
 constexpr int MT = TW / 16;     // m16 tiles of output columns per warp
 constexpr int STAGE_U = 8;      // halo elements a thread loads before it stores any
-
-__device__ __forceinline__ unsigned pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (unsigned)__bfloat16_as_ushort(lo) | ((unsigned)__bfloat16_as_ushort(hi) << 16);
-}
-
-// Word j (channels 2j, 2j+1 of a chunk) of output channel co's row sits at
-// j ^ swizzle(co): rows 4 apart would else fall on the same banks.
-__device__ __forceinline__ int swizzle(int co) { return ((co >> 2) & 1) << 2; }
-
-// The weights as the CTAs stage them: [co tile][chunk][tap][TCO][KW2] words of
-// two bf16 (channels c, c+1 of one tap and output channel), zero beyond C and
-// Co, swizzled. One thread per word.
-__global__ void pack_weights_kernel(const __nv_bfloat16* __restrict__ w,
-                                    unsigned* __restrict__ wp, int C, int Co, int taps,
-                                    int n_chunks, int n_words) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_words) return;
-  int t = i;
-  const int js = t % KW2;
-  t /= KW2;
-  const int co_l = t % TCO;
-  t /= TCO;
-  const int tap = t % taps;
-  t /= taps;
-  const int chunk = t % n_chunks;
-  const int cot = t / n_chunks;
-  const int co = cot * TCO + co_l;
-  const int c = chunk * KC + 2 * (js ^ swizzle(co_l));
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  __nv_bfloat16 lo = zero, hi = zero;
-  if (co < Co) {
-    const __nv_bfloat16* src = w + ((size_t)co * C + c) * taps + tap;
-    if (c < C) lo = src[0];
-    if (c + 1 < C) hi = src[taps];
-  }
-  wp[i] = pack2(lo, hi);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // plane is the padded size of one channel pair's halo, in words.
 __global__ void __launch_bounds__(MMA_THREADS, 2) conv3d_mma_kernel(
@@ -414,19 +368,11 @@ int mma_plane(const Geometry& g) {
   return raw + ((8 - raw % 16) + 16) % 16;
 }
 
-size_t packed_weight_words(int C, int Co, int taps) {
-  return (size_t)((Co + TCO - 1) / TCO) * ((C + KC - 1) / KC) * taps * TCO * KW2;
-}
-
 cudaError_t launch_mma(const void* x, const void* w, void* out, void* scratch, int B,
                        const Geometry& g, cudaStream_t stream) {
   const int taps = g.kd * g.kh * g.kw;
-  const int n_chunks = (g.C + KC - 1) / KC;
-  const size_t n_words = packed_weight_words(g.C, g.Co, taps);
-  if (n_words > 0x7fffffffULL) return cudaErrorInvalidValue;
-  pack_weights_kernel<<<(unsigned)((n_words + 255) / 256), 256, 0, stream>>>(
-      (const __nv_bfloat16*)w, (unsigned*)scratch, g.C, g.Co, taps, n_chunks, (int)n_words);
-  cudaError_t err = cudaGetLastError();
+  // w is (Co, C, taps)
+  cudaError_t err = pack_weights<TCO>(w, scratch, g.C, g.Co, taps, 1, taps, g.C * taps, stream);
   if (err != cudaSuccess) return err;
   const int plane = mma_plane(g);
   const size_t bytes = ((size_t)KW2 * plane + (size_t)taps * TCO * KW2 +
@@ -449,11 +395,9 @@ bool one_of(int v, int a, int b) { return v == a || v == b; }
 }  // namespace
 
 // Bytes of scratch that conv3d_forward needs for bf16 inputs (the packed
-// weights); 0 for f32.
+// weights); 0 for f32, -1 where they are too large.
 extern "C" int conv3d_scratch_bytes(int C, int Co, int kd, int kh, int kw, int bf16) {
-  if (!bf16 || C < 1 || Co < 1) return 0;
-  const size_t bytes = packed_weight_words(C, Co, kd * kh * kw) * sizeof(unsigned);
-  return bytes > 0x7fffffffULL ? -1 : (int)bytes;
+  return packed_weight_bytes<TCO>(C, Co, kd * kh * kw, bf16);
 }
 
 // x (B, C, D, H, W), w (Co, C, kd, kh, kw), out (B, Co, Do, Ho, Wo) with

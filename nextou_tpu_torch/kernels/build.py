@@ -45,7 +45,7 @@ class Library(NamedTuple):
     functions: dict[str, list]
 
 
-_SELECT = ("knn_select.cuh",)
+_SELECT, _MMA = ("knn_select.cuh",), ("mma_bf16.cuh",)
 LIBRARIES: dict[str, Library] = {
     "knn_max": Library(_SELECT, {"knn_max_forward": [_PTR] * 5 + [_INT] * 6 + [_PTR]}),
     "knn_max_idx": Library(_SELECT, {
@@ -53,9 +53,13 @@ LIBRARIES: dict[str, Library] = {
         "knn_indices_forward": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     }),
     "knn_max_bwd": Library((), {"knn_max_backward": [_PTR] * 7 + [_INT] * 6 + [_PTR]}),
-    "conv3d": Library((), {
+    "conv3d": Library(_MMA, {
         "conv3d_forward": [_PTR] * 4 + [_INT] * 13 + [_PTR],
         "conv3d_scratch_bytes": [_INT] * 6,
+    }),
+    "conv_cl": Library(_MMA, {
+        "conv_cl_forward": [_PTR] * 4 + [_INT] * 13 + [_PTR],
+        "conv_cl_scratch_bytes": [_INT] * 6,
     }),
     "conv_probe": Library((), {"conv_probe_forward": [_PTR] * 3 + [_INT] * 5 + [_PTR]}),
     "knn_dissect": Library(_SELECT, {"knn_dissect_forward": [_PTR] * 5 + [_INT] * 6 + [_PTR]}),

@@ -44,6 +44,7 @@ from nextou_tpu_torch.core.pos_embed import relative_pos_bias
 from nextou_tpu_torch.models.spec import GNNBlockSpec, ModelSpec
 from nextou_tpu_torch.nn.conv_blocks import StackedConvBlocks, conv
 from nextou_tpu_torch.nn.graphers import FFN, PoolGrapher, SwinGrapher
+from nextou_tpu_torch.plans.planner import compute_conv_feature_map_size
 
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
 _CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
@@ -285,6 +286,20 @@ class NexToU(nn.Module):
 
         self.encoder = Encoder(spec, table, self.generator, conv_kernel, device)
         self.decoder = Decoder(spec, table, self.generator, conv_kernel, device)
+
+    def compute_conv_feature_map_size(self, input_size=None) -> int:
+        """Total conv output elements of a forward pass, the VRAM proxy
+        nnU-Net uses for auto-configuration (upstream ``NexToU.py:59-63``);
+        ``input_size`` defaults to the spec's patch size."""
+        s = self.spec
+        return compute_conv_feature_map_size(
+            list(input_size or s.patch_size),
+            [st.features for st in s.encoder],
+            [list(st.stride) for st in s.encoder],
+            [st.n_conv + len(st.gnn) for st in s.encoder],
+            [st.n_conv + len(st.gnn) for st in s.decoder],
+            num_classes=s.num_classes,
+        )
 
     def forward(self, x: torch.Tensor):
         s = self.spec

@@ -353,7 +353,8 @@ def test_probe_plain_version_matches_the_numpy_oracle():
 
 
 @pytest.mark.parametrize("tool", [
-    "exp_conv_v2", "exp_conv_probe", "exp_knn_dissect", "profile_forward", "profile_train",
+    "exp_conv_v2", "exp_conv_probe", "exp_knn_dissect", "exp_conv_kernel", "profile_forward",
+    "profile_train",
 ])
 def test_tools_fail_without_a_card(tool):
     if torch.cuda.is_available():

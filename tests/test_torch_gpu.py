@@ -1,4 +1,4 @@
-"""The hand-written kernels K1-K5 and the probes' (``nextou_tpu_torch/csrc/``)
+"""The hand-written kernels K1-K5, T3 and the probes' (``nextou_tpu_torch/csrc/``)
 against their plain PyTorch versions on a CUDA card. Imports no jax, so that it runs on a machine with the
 card and without jax:
 
@@ -244,3 +244,33 @@ def test_tool_probes_match_their_oracles_on_gpu():
     for mode in ("nosel", "nominext", "distonly"):  # they launch; their outputs mean nothing
         out = exp_knn_dissect.knn_dissect_cuda(xn, yn, y, rel, 9, mode)
         assert out.shape == got.shape and torch.isfinite(out).all()
+
+
+# --- T3, the channels-last conv ---------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_cl_matches_plain_on_gpu(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("T3's kernel is CUDA code: needs a CUDA card")
+    from nextou_tpu_torch.tools import exp_conv_kernel as t3
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cases = [(t3.pallas_conv, c) for c in t3.small_cases() + t3.EXTRA_CHECK_CASES]
+    cases += [(t3.csub_conv, c) for c in t3.check3_cases()]
+    for i, (entry, (name, shape, co, kernel, stride)) in enumerate(cases):
+        x, w = t3.seeded_case(shape, co, kernel, dtype, dev, seed=i)
+        before = t3.conv_cl_cuda.launches
+        got = entry(x, w, stride)
+        torch.cuda.synchronize()
+        assert t3.conv_cl_cuda.launches == before + 1, name
+        for want in (t3.conv_cl_reference(x, w, stride), t3.xla_conv(x, w, stride)):
+            ok, err, scale = t3.within_tolerance(got, want)
+            assert ok, (entry.__name__, name, err, scale)
+    with pytest.raises(ValueError):
+        t3.conv_cl_cuda(x, w.float() if dtype == torch.bfloat16 else w.bfloat16(), (1, 1, 1))
+    with pytest.raises(ValueError):
+        t3.csub_conv(x, w, (2, 1, 1))

@@ -180,7 +180,9 @@ def test_port_imports_neither_jax_nor_flax():
         "names = [m.name for m in pkgutil.walk_packages(nextou_tpu_torch.__path__, 'nextou_tpu_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
         "assert len(names) > 30, names\n"
-        "new = ['kernels.build', 'kernels.conv', 'tools.exp_conv_v2', 'tools.exp_conv_probe', 'tools.exp_knn_dissect']\n"
+        "new = ['kernels.build', 'kernels.conv', 'tools.exp_conv_v2', 'tools.exp_conv_probe', 'tools.exp_knn_dissect',\n"
+        "       'tools.exp_conv_kernel', 'native', 'data.augment', 'data.sampler', 'data.loader',\n"
+        "       'infer.evaluate', 'train.checkpoint', 'train.trainer', 'train.trainers', 'run_training']\n"
         "assert all('nextou_tpu_torch.' + n in names for n in new), names\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'nextou_tpu')))"
     )
