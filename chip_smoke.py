@@ -11,8 +11,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    output rows may differ, and every row that differs must be a near tie of
    the plain version (its k-th and (k+1)-th distances within 1e-4: f32
    accumulation-order noise over C <= 324 terms; bf16 products are exact in
-   f32). The share is taken over at least 10,000 rows per shape: a small
-   shape is drawn again with fresh seeded inputs until it has that many;
+   f32, and f32 coordinates go through the 3xTF32 split). The share is taken
+   over at least 10,000 rows per shape: a small shape is drawn again with
+   fresh seeded inputs until it has that many. Per shape the time beside the
+   first design's (``FIRST_DESIGN_MS``), the plain version's, the bound and
+   the CTAs the kernel launches;
 4. K2 (indices), K3 (training forward: max and indices) and K4 (backward)
    at every kNN shape of one flagship train step at batch 2, f32
    coordinates with bf16 and with f32 values. K2's indices equal to K3's
@@ -27,7 +30,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    where every candidate receives one contribution, and non-zero for bf16
    queries with f32 candidates. Every time beside its bound: the larger of
    the bytes moved at 3.35 TB/s and the operations at the card's peak for
-   their type. No flagship graph is dilated, so K2 never runs at these
+   their type; for the selection on f32 coordinates (K1's f32
+   instantiation, K2, K3, T1) the rate of an f32-accurate tensor-core
+   product, three TF32 products per term at 495 TFLOP/s (2 B N M C / 165e12
+   s), not the f32 FMA peak, which a tensor-core kernel would read under.
+   Times beside the first design's too. No flagship graph is dilated, so K2 never runs at these
    shapes: its record comes from the shapes of the small dilated network of
    phase 8 (``k * dilation`` neighbours), held against the plain version
    there in the same way;
@@ -75,7 +82,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     small cases), T2's row-patch probe in both output orders against its
     numpy oracle (max error under 1e-4), T1's dissection of K1 at its two
     shapes (mode ``full`` against the plain version, at most 0.1% of rows
-    off; the five modes' times printed);
+    off; the five modes' times printed beside the first design's);
 13. T3, the channels-last conv, through its tool: ``check`` and ``check3``
     (both entry points, ``pallas_conv`` and ``csub_conv``, in f32 and bf16,
     against the plain version and ``F.conv3d``; f32 within 1e-4 x max(1,
@@ -124,8 +131,80 @@ TIE_GAP, MAX_ROWS_OFF, MAX_ROWS_REORDERED, MIN_ROWS = 1e-4, 1e-3, 1e-2, 10_000
 TILE_BATCH, MIRRORS_PER_FORWARD = 2, 2
 TRAIN_BATCH = 2
 # the card's published peaks (H100 SXM): device memory, bf16 tensor cores,
-# f32 outside the tensor cores
+# f32 outside the tensor cores; and the rate of an f32-accurate product on
+# the tensor cores, three TF32 products per term at 495 TFLOP/s (the kNN
+# kernels' 3xTF32 selection on f32 coordinates)
 PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
+PEAK_SPLIT_FLOPS = 495e12 / 3
+
+# The kNN kernels' milliseconds per call in their first design (f32 FMAs
+# from shared memory, 32 query rows per CTA), by chip_smoke.py of git commit
+# 179b1e6 on one NVIDIA H100 80GB HBM3 at a 700.00 W power limit: printed
+# beside this run's, shape by shape. (kernel, dtype, (B, N, M, C, k)) -> ms;
+# the dtype is K1's coordinates', K3's values'. T1's by mode, at the pool
+# shape only: its Swin windows were drawn apart from their queries then.
+FIRST_DESIGN_MS = {
+    ('K1', 'bfloat16', (4, 10752, 168, 132, 14)): 0.587,
+    ('K1', 'float32', (4, 10752, 168, 132, 14)): 0.574,
+    ('K1', 'bfloat16', (2048, 168, 168, 132, 7)): 3.794,
+    ('K1', 'float32', (2048, 168, 168, 132, 7)): 3.246,
+    ('K1', 'bfloat16', (4, 10752, 1344, 264, 28)): 4.52,
+    ('K1', 'float32', (4, 10752, 1344, 264, 28)): 3.644,
+    ('K1', 'bfloat16', (256, 168, 168, 264, 14)): 1.016,
+    ('K1', 'float32', (256, 168, 168, 264, 14)): 0.885,
+    ('K1', 'bfloat16', (4, 1344, 1344, 324, 32)): 1.151,
+    ('K1', 'float32', (4, 1344, 1344, 324, 32)): 0.97,
+    ('K1', 'bfloat16', (32, 168, 168, 324, 14)): 0.291,
+    ('K1', 'float32', (32, 168, 168, 324, 14)): 0.245,
+    ('K1', 'bfloat16', (4, 168, 168, 324, 32)): 0.276,
+    ('K1', 'float32', (4, 168, 168, 324, 32)): 0.277,
+    ('K1', 'bfloat16', (4, 168, 168, 324, 28)): 0.257,
+    ('K1', 'float32', (4, 168, 168, 324, 28)): 0.242,
+    ('K3', 'bfloat16', (2, 10752, 168, 132, 14)): 0.241,
+    ('K2', 'float32', (2, 10752, 168, 132, 14)): 0.176,
+    ('K3', 'float32', (2, 10752, 168, 132, 14)): 0.238,
+    ('K3', 'bfloat16', (1024, 168, 168, 132, 7)): 1.488,
+    ('K2', 'float32', (1024, 168, 168, 132, 7)): 1.089,
+    ('K3', 'float32', (1024, 168, 168, 132, 7)): 1.472,
+    ('K3', 'bfloat16', (2, 10752, 1344, 264, 28)): 1.917,
+    ('K2', 'float32', (2, 10752, 1344, 264, 28)): 1.642,
+    ('K3', 'float32', (2, 10752, 1344, 264, 28)): 1.928,
+    ('K3', 'bfloat16', (128, 168, 168, 264, 14)): 0.412,
+    ('K2', 'float32', (128, 168, 168, 264, 14)): 0.275,
+    ('K3', 'float32', (128, 168, 168, 264, 14)): 0.406,
+    ('K3', 'bfloat16', (2, 1344, 1344, 324, 32)): 0.784,
+    ('K2', 'float32', (2, 1344, 1344, 324, 32)): 0.62,
+    ('K3', 'float32', (2, 1344, 1344, 324, 32)): 0.794,
+    ('K3', 'bfloat16', (16, 168, 168, 324, 14)): 0.166,
+    ('K2', 'float32', (16, 168, 168, 324, 14)): 0.104,
+    ('K3', 'float32', (16, 168, 168, 324, 14)): 0.178,
+    ('K3', 'bfloat16', (2, 168, 168, 324, 32)): 0.212,
+    ('K2', 'float32', (2, 168, 168, 324, 32)): 0.12,
+    ('K3', 'float32', (2, 168, 168, 324, 32)): 0.218,
+    ('K3', 'bfloat16', (2, 168, 168, 324, 28)): 0.207,
+    ('K2', 'float32', (2, 168, 168, 324, 28)): 0.118,
+    ('K3', 'float32', (2, 168, 168, 324, 28)): 0.217,
+    ('K2', 'float32', (2, 32, 32, 12, 16)): 0.0441,
+    ('K2', 'float32', (2, 32, 32, 12, 8)): 0.0441,
+}
+FIRST_DESIGN_T1_MS = {
+    's3 pool': {'full': 1.963, 'half_k': 1.819, 'nosel': 1.606, 'nominext': 1.676,
+                'distonly': 1.6},
+}
+
+
+def first_design(kernel, dtype, shape) -> str:
+    ms = FIRST_DESIGN_MS.get((kernel, str(dtype)[6:], tuple(shape)))
+    return "first design not measured" if ms is None else f"first design {ms:.3f} ms"
+
+
+def plan_str(B, N, M, C, k, **kw) -> str:
+    """The CTAs a kNN kernel launches at this shape, and how they sit."""
+    from nextou_tpu_torch.kernels.knn import kernel_plan
+
+    p = kernel_plan(B, N, M, C, k, **kw)
+    mode = "one per window" if p["window"] else f"{p['rows']} rows each"
+    return f"{p['ctas']} CTAs ({mode}, {p['per_sm']}/SM, {p['smem'] / 1024:.1f} KB)"
 
 # the BTCV/Synapse 13-organ binary interaction tree of upstream's
 # nnUNetTrainer_NexToU_BTI_Synapse (exclusion pairs of label sets)
@@ -301,7 +380,7 @@ def kernel_phase(spec, dev) -> Totals:
             share = rows_off / (draws * B * N)
             t_k1 = cuda_ms(lambda: knn_max_neighbors(x, k, y, rel))
             t_plain = cuda_ms(lambda: knn_max_neighbors_reference(x, k, y, rel))
-            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_SPLIT_FLOPS
             # K1 reads the coordinates, the values (the raw features in the
             # coordinates' dtype: a tensor of its own) and the bias, and
             # writes the f32 max
@@ -313,7 +392,9 @@ def kernel_phase(spec, dev) -> Totals:
                 f"K1 B={B} N={N} M={M} C={C} k={k} {str(dtype)[6:]} x{count}: "
                 f"rows off {rows_off}/{draws * B * N} = {share:.2e} "
                 f"(worst k/k+1 gap {worst_gap:.2e}) max|err| {err:.3g}  "
-                f"K1 {t_k1:.3f} ms  plain {t_plain:.3f} ms  bound {bound:.4f} ms ({by})"
+                f"K1 {t_k1:.3f} ms ({first_design('K1', dtype, (B, N, M, C, k))})  "
+                f"plain {t_plain:.3f} ms  bound {bound:.4f} ms ({by}); "
+                + plan_str(B, N, M, C, k, bf16=dtype == torch.bfloat16, self_graph=self_graph)
             )
             if share > MAX_ROWS_OFF or worst_gap > TIE_GAP:
                 raise AssertionError(f"K1 disagrees with the plain version at {B, N, M, C, k}")
@@ -397,15 +478,18 @@ def train_kernel_phase(spec, dev) -> dict[str, Totals]:
             p_k2 = cuda_ms(lambda: knn_indices_reference(xn, yn, rel, k))
             p_k4 = cuda_ms(lambda: knn_max_bwd_reference(yv, idx3, maxv, g, k))
             flops = 2.0 * B * N * M * C
-            b_k3, by3 = bound_ms(nbytes(xn, yn, yv, rel, maxv, idx3), flops)
-            b_k2, by2 = bound_ms(nbytes(xn, yn, rel, idx2), flops)
+            b_k3, by3 = bound_ms(nbytes(xn, yn, yv, rel, maxv, idx3), flops, PEAK_SPLIT_FLOPS)
+            b_k2, by2 = bound_ms(nbytes(xn, yn, rel, idx2), flops, PEAK_SPLIT_FLOPS)
             b_k4, by4 = bound_ms(nbytes(yv, idx3, maxv, g, gy), 2.0 * B * N * k * C)
             totals["knn_max_idx"][dtype].add(count, t_k3, p_k3, b_k3, by3, err3)
             totals["knn_max_bwd"][dtype].add(count, t_k4, p_k4, b_k4, by4, err4)
             print(
                 f"train B={B} N={N} M={M} C={C} k={k} values {str(dtype)[6:]} x{count}: {sel}; "
-                f"K3 {t_k3:.3f} ms plain {p_k3:.3f} bound {b_k3:.4f} ({by3}); "
-                f"K2 {t_k2:.3f} ms plain {p_k2:.3f} bound {b_k2:.4f} ({by2}); "
+                f"K3 {t_k3:.3f} ms ({first_design('K3', dtype, (B, N, M, C, k))}) "
+                f"plain {p_k3:.3f} bound {b_k3:.4f} ({by3}), "
+                + plan_str(B, N, M, C, k, self_graph=self_graph) + "; "
+                f"K2 {t_k2:.3f} ms ({first_design('K2', torch.float32, (B, N, M, C, k))}) "
+                f"plain {p_k2:.3f} bound {b_k2:.4f} ({by2}); "
                 f"K4 {t_k4:.3f} ms plain {p_k4:.3f} bound {b_k4:.4f} ({by4}) "
                 f"max|err| {err4:.3g} = {worst4:.3f} of tolerance"
             )
@@ -470,10 +554,12 @@ def dilated_kernel_phase(spec, dev) -> Totals:
             sel.add(xn, yn, rel, k, idx, knn_indices_reference(xn, yn, rel, k))
         t_k2 = cuda_ms(lambda: knn_indices_cuda(xn, yn, rel, k))
         p_k2 = cuda_ms(lambda: knn_indices_reference(xn, yn, rel, k))
-        bound, by = bound_ms(nbytes(xn, yn, rel, idx), 2.0 * B * N * M * C)
+        bound, by = bound_ms(nbytes(xn, yn, rel, idx), 2.0 * B * N * M * C, PEAK_SPLIT_FLOPS)
         total.add(count, t_k2, p_k2, bound, by, sel.dist_err)
         print(f"K2 B={B} N={N} M={M} C={C} k={k} x{count}: {sel}; "
-              f"K2 {t_k2:.4f} ms plain {p_k2:.4f} bound {bound:.6f} ({by})")
+              f"K2 {t_k2:.4f} ms ({first_design('K2', torch.float32, (B, N, M, C, k))}) "
+              f"plain {p_k2:.4f} bound {bound:.6f} ({by}); "
+              + plan_str(B, N, M, C, k, self_graph=self_graph))
         sel.check("K2", (B, N, M, C, k))
     print(f"knn_indices per train step of the small dilated network: {total.ms:.4f} ms, "
           f"plain {total.plain_ms:.4f} ms, bound {total.bound_ms:.6f} ms")
@@ -1128,13 +1214,18 @@ def tools_phase(dev) -> dict:
 
     dissect = Totals()
     exp_knn_dissect.knn_dissect_cuda.launches = 0
-    for tag, B, N, M, C, k in exp_knn_dissect.SHAPES:
-        r = exp_knn_dissect.bench_shape(tag, B, N, M, C, k, dev)
-        # f32 coordinates, bf16 values and the f32 bias in, the f32 max out
-        moved = (B * N * C + B * M * C) * 4 + B * M * C * 2 + N * M * 4 + B * N * C * 4
-        bound, by = bound_ms(moved, 2.0 * B * N * M * C)
+    for tag, B, N, M, C, k, self_graph in exp_knn_dissect.SHAPES:
+        r = exp_knn_dissect.bench_shape(tag, B, N, M, C, k, self_graph, dev)
+        # f32 coordinates (once for a self-graph), bf16 values and the f32
+        # bias in, the f32 max out
+        moved = (B * N * C + (0 if self_graph else B * M * C)) * 4 + B * M * C * 2 + N * M * 4
+        moved += B * N * C * 4
+        bound, by = bound_ms(moved, 2.0 * B * N * M * C, PEAK_SPLIT_FLOPS)
         dissect.add(1, r["full"], r["plain_ms"], bound, by, r["max_abs_err"])
-        print(f"knn_dissect {tag}: bound {bound:.4f} ms ({by})")
+        old = FIRST_DESIGN_T1_MS.get(tag, {})
+        print(f"knn_dissect {tag}: bound {bound:.4f} ms ({by}); first design: "
+              + (", ".join(f"{mode} {ms:.3f} ms" for mode, ms in old.items()) or "not measured")
+              + "; " + plan_str(B, N, M, C, k, self_graph=self_graph))
         torch.cuda.empty_cache()
     return {"conv_probe": probe, "knn_dissect": dissect,
             "probe_launches": exp_conv_probe.conv_probe_cuda.launches,

@@ -6,9 +6,9 @@
 // (N, M) f32 bias, the output is (B, N, C) f32, and only mode `full` computes
 // the real function; the others write something cheap that depends on what
 // they did compute, so that the compiler keeps it. The kernel's body is the
-// one K1, K2 and K3 share (knn_select.cuh): the streamed f32 distance
-// product, the running top-k in a warp's lanes, the gather by index and the
-// max. The modes, named after the TPU probe's:
+// one K1, K2 and K3 share (knn_select.cuh): the distance product, the
+// running top-k in a warp's lanes, the gather by index and the max. The
+// modes, named after the TPU probe's:
 //
 //   0 full      product + top-k + gather and max: K1's function
 //   1 nosel     product + top-k, no gather: every channel gets the row's
@@ -20,7 +20,9 @@
 //
 // (`half_k` of the TPU probe is mode 0 launched with k / 2.)
 //
-// What bounds it: as K1, the product's f32 FMAs from shared memory.
+// The body is K1's as it now is: the product on mma.sync (3xTF32, since the
+// coordinates are f32), the query tile staged once, the candidates through
+// the cp.async ring, Swin windows one per CTA. What bounds it: as K1.
 
 #include "knn_select.cuh"
 
@@ -31,32 +33,21 @@ using namespace knn;
 enum Mode { MODE_FULL = 0, MODE_NOSEL = 1, MODE_NOMINEXT = 2, MODE_DISTONLY = 3 };
 
 template <int MODE>
-__global__ void __launch_bounds__(THREADS) knn_dissect_kernel(
-    const float* __restrict__ xn, const float* __restrict__ yn,
-    const __nv_bfloat16* __restrict__ yv, const float* __restrict__ rel,
-    float* __restrict__ out, int N, int M, int C, int k, int n_tiles) {
-  __shared__ SelectSmem smem;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x / n_tiles;
-  const int n0 = (blockIdx.x % n_tiles) * TQ;
-  constexpr bool INSERT = MODE == MODE_FULL || MODE == MODE_NOSEL;
-  float topd[ROWS_PER_WARP];
-  int topi[ROWS_PER_WARP];
-  select_rows<float, true, INSERT>(xn + (size_t)b * N * C, yn + (size_t)b * M * C,
-                                   rel, N, M, C, k, n0, smem, topd, topi);
-#pragma unroll
-  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int n = n0 + warp * ROWS_PER_WARP + rr;
-    if (n >= N) continue;  // warp-uniform
+struct DissectEmit {
+  const __nv_bfloat16* yv;
+  float* out;
+  int N, M, C, k;
+  __device__ void operator()(int b, int n, float topd, int topi) const {
+    constexpr bool INSERT = MODE == MODE_FULL || MODE == MODE_NOSEL;
+    const int lane = threadIdx.x & 31;
     float* orow = out + ((size_t)b * N + n) * C;
     if (MODE == MODE_FULL) {
-      gather_max(yv + (size_t)b * M * C, topi[rr], k, C, orow);
-      continue;
+      gather_max(yv + (size_t)b * M * C, topi, k, C, orow);
+      return;
     }
     // one distance of the row: its k-th (lane k-1 holds it), or its least
     // (the least over the lanes' own)
-    float d = topd[rr];
+    float d = topd;
     if (INSERT) {
       d = __shfl_sync(FULL, d, k - 1);
     } else {
@@ -70,16 +61,24 @@ __global__ void __launch_bounds__(THREADS) knn_dissect_kernel(
       for (int c = lane; c < C; c += 32) orow[c] = d;
     }
   }
+};
+
+template <int MODE, int TQ, bool WINDOW>
+__global__ void __launch_bounds__(THREADS, 2) knn_dissect_kernel(
+    Args a, const __nv_bfloat16* __restrict__ yv, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool INSERT = MODE == MODE_FULL || MODE == MODE_NOSEL;
+  select_rows<float, TQ, WINDOW, INSERT>(a, smem,
+                                         DissectEmit<MODE>{yv, out, a.N, a.M, a.C, a.k});
 }
 
 template <int MODE>
-void launch(const void* xn, const void* yn, const void* yv, const void* rel, void* out,
-            int B, int N, int M, int C, int k, cudaStream_t stream) {
-  const int n_tiles = (N + TQ - 1) / TQ;
-  const dim3 grid((unsigned)B * (unsigned)n_tiles);
-  knn_dissect_kernel<MODE><<<grid, THREADS, 0, stream>>>(
-      (const float*)xn, (const float*)yn, (const __nv_bfloat16*)yv, (const float*)rel,
-      (float*)out, N, M, C, k, n_tiles);
+cudaError_t launch(const Plan& p, const Args& a, const void* yv, void* out,
+                   cudaStream_t stream) {
+  return with_plan(p, [&](auto tq, auto window) {
+    return launch_planned(knn_dissect_kernel<MODE, decltype(tq)::value, decltype(window)::value>,
+                          p, stream, a, (const __nv_bfloat16*)yv, (float*)out);
+  });
 }
 
 }  // namespace
@@ -90,14 +89,18 @@ void launch(const void* xn, const void* yn, const void* yv, const void* rel, voi
 extern "C" int knn_dissect_forward(const void* xn, const void* yn, const void* yv,
                                    const void* rel, void* out, int B, int N, int M,
                                    int C, int k, int mode, void* stream) {
-  if (bad_shape(B, N, M, C, k) || rel == nullptr) return (int)cudaErrorInvalidValue;
+  Plan p;
+  if (bad_shape(B, N, M, C, k) || rel == nullptr ||
+      !make_plan(B, N, M, C, 4, xn == yn && N == M, xn, yn, p)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Args a{xn, yn, (const float*)rel, B, N, M, C, k, p.vec};
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
-    case MODE_FULL: launch<MODE_FULL>(xn, yn, yv, rel, out, B, N, M, C, k, s); break;
-    case MODE_NOSEL: launch<MODE_NOSEL>(xn, yn, yv, rel, out, B, N, M, C, k, s); break;
-    case MODE_NOMINEXT: launch<MODE_NOMINEXT>(xn, yn, yv, rel, out, B, N, M, C, k, s); break;
-    case MODE_DISTONLY: launch<MODE_DISTONLY>(xn, yn, yv, rel, out, B, N, M, C, k, s); break;
+    case MODE_FULL: return (int)launch<MODE_FULL>(p, a, yv, out, s);
+    case MODE_NOSEL: return (int)launch<MODE_NOSEL>(p, a, yv, out, s);
+    case MODE_NOMINEXT: return (int)launch<MODE_NOMINEXT>(p, a, yv, out, s);
+    case MODE_DISTONLY: return (int)launch<MODE_DISTONLY>(p, a, yv, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -45,9 +45,13 @@ class Library(NamedTuple):
     functions: dict[str, list]
 
 
-_SELECT, _MMA = ("knn_select.cuh",), ("mma_bf16.cuh",)
+_MMA = ("mma_bf16.cuh",)
+_SELECT = ("knn_select.cuh", *_MMA)
 LIBRARIES: dict[str, Library] = {
-    "knn_max": Library(_SELECT, {"knn_max_forward": [_PTR] * 5 + [_INT] * 6 + [_PTR]}),
+    "knn_max": Library(_SELECT, {
+        "knn_max_forward": [_PTR] * 5 + [_INT] * 6 + [_PTR],
+        "knn_max_plan": [_INT] * 7 + [_PTR],
+    }),
     "knn_max_idx": Library(_SELECT, {
         "knn_max_idx_forward": [_PTR] * 6 + [_INT] * 6 + [_PTR],
         "knn_indices_forward": [_PTR] * 4 + [_INT] * 5 + [_PTR],

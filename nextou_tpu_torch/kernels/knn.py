@@ -30,6 +30,8 @@ in ``.launches``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from nextou_tpu_torch.core.graph import (
@@ -251,6 +253,23 @@ def knn_indices_cuda(
 
 
 knn_indices_cuda.launches = 0
+
+
+def kernel_plan(
+    B: int, N: int, M: int, C: int, k: int, *, bf16: bool = False, self_graph: bool = False
+) -> dict:
+    """How K1 runs these arguments on the current card, with bf16 or f32
+    coordinates (K2, K3 and T1 take K1's f32 plan): query rows per CTA
+    (``rows``), ``window`` (one CTA per self-graph, staged whole), ``ctas``,
+    ``smem`` bytes per CTA and ``per_sm``, the CTAs resident on one SM.
+    ``self_graph``: the launch passes the same coordinates as queries and
+    candidates."""
+    out = (ctypes.c_int * 5)()
+    rc = library("knn_max").knn_max_plan(
+        B, N, M, C, k, int(bf16), int(self_graph), ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"kernel_plan: CUDA error {rc}")
+    return dict(zip(("rows", "window", "ctas", "smem", "per_sm"), out))
 
 
 def knn_max_bwd_cuda(

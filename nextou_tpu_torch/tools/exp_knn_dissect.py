@@ -14,7 +14,9 @@ the outputs mean nothing except in ``full``:
 
 at the stage-3 pool grapher's shape (2, 10752, 1344, 264, k 28) and the
 stage-2 Swin windows' (1024, 168, 168, 132, k 7), f32 coordinates, bf16
-values and a zero bias, as there. ``full`` is held against the plain version
+values and a zero bias, as there; the windows are self-graphs, as in the
+model (the JAX tool draws them apart), so that they take the kernel's window
+mode as K1 and K3 do. ``full`` is held against the plain version
 (``knn_max_neighbors_reference`` on f32 coordinates) under K1's rule: at
 most 0.1% of the rows may differ; the times are by CUDA events.
 """
@@ -30,10 +32,10 @@ from nextou_tpu_torch.kernels.knn import K_MAX, _normalized, knn_max_neighbors_r
 from nextou_tpu_torch.tools.timing import card, cuda_ms, require_card
 
 MODES = {"full": 0, "nosel": 1, "nominext": 2, "distonly": 3}
-# tag, B, N, M, C, k
+# tag, B, N, M, C, k, self-graph
 SHAPES = [
-    ("s3 pool", 2, 10752, 1344, 264, 28),
-    ("s2 swin", 1024, 168, 168, 132, 7),
+    ("s3 pool", 2, 10752, 1344, 264, 28, False),
+    ("s2 swin", 1024, 168, 168, 132, 7, True),
 ]
 MAX_ROWS_OFF = 1e-3
 _F32 = (torch.float32,)
@@ -74,22 +76,22 @@ def knn_dissect_cuda(
 knn_dissect_cuda.launches = 0
 
 
-def dissect_inputs(B, N, M, C, dev, seed=0):
-    """Seeded bf16 features ``x (B, N, C)``, ``y (B, M, C)`` and what the
-    kernel reads of them: their normalized f32 coordinates, ``y`` as the
-    values, a zero bias."""
+def dissect_inputs(B, N, M, C, dev, seed=0, self_graph=False):
+    """Seeded bf16 features ``x (B, N, C)``, ``y (B, M, C)`` (``x`` itself
+    for a self-graph) and what the kernel reads of them: their normalized
+    f32 coordinates, ``y`` as the values, a zero bias."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(B, N, C, generator=gen, device=dev).bfloat16()
-    y = torch.randn(B, M, C, generator=gen, device=dev).bfloat16()
+    y = x if self_graph else torch.randn(B, M, C, generator=gen, device=dev).bfloat16()
     xn, yn = _normalized(x, y, train=True)
     rel = torch.zeros(N, M, device=dev)
     return x, y, xn.contiguous(), yn.contiguous(), rel
 
 
-def bench_shape(tag, B, N, M, C, k, dev) -> dict:
+def bench_shape(tag, B, N, M, C, k, self_graph, dev) -> dict:
     """Hold ``full`` against the plain version, then time the five modes.
     Returns ``{mode: ms}`` plus ``plain_ms`` and ``rows_off`` (the share)."""
-    x, y, xn, yn, rel = dissect_inputs(B, N, M, C, dev)
+    x, y, xn, yn, rel = dissect_inputs(B, N, M, C, dev, self_graph=self_graph)
     got = knn_dissect_cuda(xn, yn, y, rel, k, "full")
     torch.cuda.synchronize()
     want = knn_max_neighbors_reference(x, k, y, rel, train=True).float()

@@ -184,6 +184,114 @@ def test_train_dispatch_on_gpu():
         dense_knn(xn, 33)
 
 
+# --- the selection's plans, odd widths and duplicated rows ------------------------------
+
+# (b, self_graph, n, m, c, k, plan): C off the k step (132, and the small
+# network's 6 and 12), M off the 64-candidate chunk, and every plan the
+# kernels take: 64, 32 or 16 query rows per CTA, or one CTA per window
+SELECT_CASES = [
+    (60, False, 300, 1000, 132, 28, (64, 0)),
+    (30, False, 300, 1000, 132, 28, (32, 0)),
+    (2, False, 300, 1000, 132, 28, (16, 0)),
+    (3, True, 96, 96, 6, 5, (16, 0)),
+    (2, False, 200, 150, 12, 9, (16, 0)),
+    (136, True, 168, 168, 132, 7, (32, 1)),  # Swin windows, one CTA each
+    (4, True, 168, 168, 324, 32, (16, 0)),  # s5: rows split finer
+]
+
+
+def _select_inputs(dev, kind, b, self_graph, n, m, c, seed):
+    """Seeded features (and bias) on the card: ``random``, ``tie_built``,
+    or ``duplicated``: random, the second half of the candidates repeating
+    the first bit for bit (for a self-graph the queries with them), no
+    bias."""
+    if kind != "duplicated":
+        return _on(dev, *make_case(kind, self_graph, True, n, m, c, seed, b=b))
+    half_n = n // 2 if self_graph else n
+    x, y, _ = make_case("random", self_graph, False, half_n, m // 2, c, seed, b=b)
+    if self_graph:
+        x = np.concatenate([x, x], axis=1)
+    else:
+        y = np.concatenate([y, y], axis=1)
+    return _on(dev, x, y, np.zeros((n, n if self_graph else m), np.float32))
+
+
+def _first_of_equal_rows(idx, half):
+    """Whether every selected copy j >= half of candidate j - half comes
+    after that candidate in its row: equal distances, lowest index first."""
+    idx = idx.long().cpu()
+    pos = torch.full((*idx.shape[:2], 2 * half), idx.shape[-1], dtype=torch.long)
+    pos.scatter_(2, idx, torch.arange(idx.shape[-1]).expand_as(idx).contiguous())
+    copies = pos[..., half:] < idx.shape[-1]
+    return bool((pos[..., :half] < pos[..., half:])[copies].all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "tie_built", "duplicated"])
+def test_selection_plans_widths_and_duplicates_on_gpu(kind):
+    if not torch.cuda.is_available():
+        pytest.skip("K1, K2 and K3 are CUDA code: they need a CUDA card")
+    dev = torch.device("cuda")
+    for i, (b, self_graph, n, m, c, k, plan) in enumerate(SELECT_CASES):
+        x, y, rel = _select_inputs(dev, kind, b, self_graph, n, m, c, 40 + i)
+        for bf16 in (True, False):
+            got_plan = port_knn.kernel_plan(b, n, m, c, k, bf16=bf16, self_graph=self_graph)
+            assert (got_plan["rows"], got_plan["window"]) == plan, (i, bf16, got_plan)
+        # K1 in bf16 and in f32
+        for dtype in (torch.bfloat16, torch.float32):
+            xt, yt = x.to(dtype), None if y is None else y.to(dtype)
+            got = knn_max_neighbors(xt, k, yt, rel)
+            want = knn_max_neighbors_reference(xt, k, yt, rel).to(dtype)
+            rows_off = (got != want).any(-1).float().mean().item()
+            # tie-built: exact arithmetic, so the very same rows
+            assert rows_off <= (0 if kind == "tie_built" else 1e-3), (i, dtype, rows_off)
+        # K3 and K2 on f32 coordinates
+        xn = l2_normalize(x).contiguous()
+        yn = xn if y is None else l2_normalize(y).contiguous()
+        yv = (x if y is None else y).bfloat16().contiguous()
+        maxv, idx3 = knn_max_idx_cuda(xn, yn, yv, rel, k)
+        idx2 = knn_indices_cuda(xn, yn, rel, k)
+        torch.cuda.synchronize()
+        assert torch.equal(idx2, idx3)
+        want_max, want_idx = knn_max_idx_reference(xn, yn, yv, rel, k)
+        off = (idx3.sort(-1).values != want_idx.sort(-1).values).any(-1)
+        assert off.float().mean().item() <= 1e-3, (i, off.float().mean().item())
+        assert not ((maxv != want_max).any(-1) & ~off).any()
+        if kind == "tie_built":  # the same neighbours in the same order
+            assert torch.equal(idx3, want_idx), i
+        if kind == "duplicated":
+            assert _first_of_equal_rows(idx3, m // 2), i
+            if self_graph:  # a row's own distance and its copy's, bit-equal
+                own = torch.arange(n, device=dev) % (n // 2)
+                assert torch.equal(idx3[..., 0].long(), own.expand(b, n))
+                assert torch.equal(idx3[..., 1].long(), (own + n // 2).expand(b, n))
+
+
+@pytest.mark.gpu
+def test_split_product_accuracy_through_t1_on_gpu():
+    """T1's ``distonly`` and ``nosel`` write a row's least and k-th distance:
+    the 3xTF32 product of f32 coordinates within 1e-5 of f64, streamed and
+    in window mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("T1's kernel is CUDA code: needs a CUDA card")
+    from nextou_tpu_torch.tools import exp_knn_dissect
+
+    dev = torch.device("cuda")
+    k = 9
+    for b, n, m, c, self_graph in ((2, 600, 1344, 324, False), (3, 700, 400, 132, False),
+                                   (136, 168, 168, 264, True)):
+        x, y, xn, yn, rel = exp_knn_dissect.dissect_inputs(b, n, m, c, dev)
+        if self_graph:
+            y, yn = x, xn
+        x64, y64 = xn.double(), yn.double()
+        dist = ((x64 * x64).sum(-1)[..., None] - 2.0 * x64 @ y64.transpose(1, 2)
+                + (y64 * y64).sum(-1)[:, None, :] + rel.double()).sort(-1).values
+        least = exp_knn_dissect.knn_dissect_cuda(xn, yn, y, rel, k, "distonly")[..., 0]
+        kth = exp_knn_dissect.knn_dissect_cuda(xn, yn, y, rel, k, "nosel")[..., 0]
+        assert (least.double() - dist[..., 0]).abs().max().item() <= 1e-5, (b, n, m, c)
+        assert (kth.double() - dist[..., k - 1]).abs().max().item() <= 1e-5, (b, n, m, c)
+
+
 # --- K5 and the tool probes on the card -----------------------------------------------
 
 

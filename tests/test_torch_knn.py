@@ -87,7 +87,7 @@ def test_dispatcher_sends_cpu_tensors_to_plain(monkeypatch):
 
 
 # --- K1's selection, emulated -------------------------------------------------
-# Same chunking as nextou_tpu_torch/csrc/knn_max.cu: candidates in chunks of
+# Same chunking as nextou_tpu_torch/csrc/knn_select.cuh: candidates in chunks of
 # TM = 64, offered 32 at a time (one per lane); lanes that beat the current
 # k-th are inserted lowest lane first, each after every entry not farther,
 # and the rest are re-filtered against the new k-th.
