@@ -27,8 +27,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    and atol 1e-6 + 2e-6 x the sum of the absolute contributions to that
    entry (a pooled candidate receives hundreds of f32 contributions, which
    the plain version's ``index_add_`` adds in another order), bit-exact
-   where every candidate receives one contribution, and non-zero for bf16
-   queries with f32 candidates. Every time beside its bound: the larger of
+   where every candidate receives one contribution, within the tolerance on
+   a hot candidate (every one of 10,752 rows names candidate 0, at s3
+   pool's M, C and k, in bf16 and f32), the same bits on a second launch in
+   both, and non-zero for bf16 queries with f32 candidates; K4's time per
+   shape beside its first design's, split by kernel (the scatter, the sum of
+   the chunks' partials) under ``torch.profiler``, with its plan. Every time beside its bound: the larger of
    the bytes moved at 3.35 TB/s and the operations at the card's peak for
    their type; for the selection on f32 coordinates (K1's f32
    instantiation, K2, K3, T1) the rate of an f32-accurate tensor-core
@@ -80,7 +84,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     stage recomputed (10 launches);
 12. the tools: T4's ``check`` (K5 against the plain and the library conv at
     small cases), T2's row-patch probe in both output orders against its
-    numpy oracle (max error under 1e-4), T1's dissection of K1 at its two
+    numpy oracle (max error under 1e-4), each order's time beside
+    ``F.conv1d``'s and an empty kernel's launch, T1's dissection of K1 at its two
     shapes (mode ``full`` against the plain version, at most 0.1% of rows
     off; the five modes' times printed beside the first design's);
 13. T3, the channels-last conv, through its tool: ``check`` and ``check3``
@@ -186,6 +191,24 @@ FIRST_DESIGN_MS = {
     ('K3', 'float32', (2, 168, 168, 324, 28)): 0.217,
     ('K2', 'float32', (2, 32, 32, 12, 16)): 0.0441,
     ('K2', 'float32', (2, 32, 32, 12, 8)): 0.0441,
+    # K4's first design (a bitmap of rows per candidate, then a walk per
+    # candidate), by tools.exp_knn_bwd of git commit d5dbfda on the same card
+    ('K4', 'bfloat16', (2, 10752, 168, 132, 14)): 0.4672,
+    ('K4', 'float32', (2, 10752, 168, 132, 14)): 0.4545,
+    ('K4', 'bfloat16', (1024, 168, 168, 132, 7)): 0.7979,
+    ('K4', 'float32', (1024, 168, 168, 132, 7)): 0.7701,
+    ('K4', 'bfloat16', (2, 10752, 1344, 264, 28)): 0.5874,
+    ('K4', 'float32', (2, 10752, 1344, 264, 28)): 0.5741,
+    ('K4', 'bfloat16', (128, 168, 168, 264, 14)): 0.2948,
+    ('K4', 'float32', (128, 168, 168, 264, 14)): 0.2875,
+    ('K4', 'bfloat16', (2, 1344, 1344, 324, 32)): 0.1291,
+    ('K4', 'float32', (2, 1344, 1344, 324, 32)): 0.1226,
+    ('K4', 'bfloat16', (16, 168, 168, 324, 14)): 0.0628,
+    ('K4', 'float32', (16, 168, 168, 324, 14)): 0.0658,
+    ('K4', 'bfloat16', (2, 168, 168, 324, 32)): 0.0749,
+    ('K4', 'float32', (2, 168, 168, 324, 32)): 0.0793,
+    ('K4', 'bfloat16', (2, 168, 168, 324, 28)): 0.0679,
+    ('K4', 'float32', (2, 168, 168, 324, 28)): 0.0879,
 }
 FIRST_DESIGN_T1_MS = {
     's3 pool': {'full': 1.963, 'half_k': 1.819, 'nosel': 1.606, 'nominext': 1.676,
@@ -196,6 +219,17 @@ FIRST_DESIGN_T1_MS = {
 def first_design(kernel, dtype, shape) -> str:
     ms = FIRST_DESIGN_MS.get((kernel, str(dtype)[6:], tuple(shape)))
     return "first design not measured" if ms is None else f"first design {ms:.3f} ms"
+
+
+def bwd_plan_str(B, N, M, C, k, bf16) -> str:
+    """The CTAs K4 launches at this shape, and how they sit."""
+    from nextou_tpu_torch.kernels.knn import knn_max_bwd_plan
+
+    p = knn_max_bwd_plan(B, N, M, C, k, bf16=bf16)
+    ctas = B * p["slices"] * p["ranges"] * p["chunks"]
+    return (f"{ctas} CTAs of {p['warps']} warps ({'walk' if p['walk'] else 'scatter'}: "
+            f"{p['slices']} slices x {p['chunks']} chunks of {p['chunk_rows']} rows, "
+            f"{p['per_sm']}/SM, {p['smem'] / 1024:.1f} KB)")
 
 
 def plan_str(B, N, M, C, k, **kw) -> str:
@@ -416,6 +450,38 @@ def order_unambiguous_case(dev, seed=7, n=16, k=3, c=8):
     return (torch.from_numpy(a).to(dev) for a in (qs, cands[None], g)), k
 
 
+def hot_candidate_case(dev, b, n, m, c, k, seed=3):
+    """K4's inputs without a selection: every row names candidate 0 (at a
+    random place among its k) and k - 1 other distinct candidates. Values
+    are halves (exact in bf16), candidate 0 at 1.5 in every channel, so it
+    holds or shares the max of most rows. Returns f32 ``yv (b, m, c)``,
+    ``idx (b, n, k)`` int32 and ``g (b, n, c)`` on ``dev``."""
+    rng = np.random.default_rng(seed)
+    yv = (np.round(rng.standard_normal((b, m, c)) * 2) / 2).astype(np.float32)
+    yv[:, 0] = 1.5
+    start = rng.integers(0, m - 1, (b, n, 1))
+    cols = np.concatenate(
+        [np.zeros((b, n, 1), np.int64), 1 + (start + np.arange(k - 1)) % (m - 1)], axis=2)
+    order = np.argsort(rng.random((b, n, k)), axis=2)
+    idx = np.take_along_axis(cols, order, axis=2).astype(np.int32)
+    g = rng.standard_normal((b, n, c)).astype(np.float32)
+    return (torch.from_numpy(a).to(dev) for a in (yv, idx, g))
+
+
+def k4_error(gy, yv, idx, maxv, g, k) -> tuple[float, float]:
+    """K4's largest difference from its plain version, and the largest
+    share of the tolerance it takes: rtol 1e-5 and atol 1e-6 + 2e-6 x the
+    sum of the absolute contributions to that entry (f32 sums in another
+    order than ``index_add_``'s)."""
+    from nextou_tpu_torch.kernels.knn import knn_max_bwd_reference
+
+    want = knn_max_bwd_reference(yv, idx, maxv, g, k)
+    scale = knn_max_bwd_reference(yv, idx, maxv, g.abs(), k)
+    diff = (gy - want).abs()
+    tol = 1e-6 + 1e-5 * want.abs() + 2e-6 * scale
+    return diff.max().item(), (diff / tol).max().item()
+
+
 def train_kernel_phase(spec, dev) -> dict[str, Totals]:
     from nextou_tpu_torch.core.graph import l2_normalize
     from nextou_tpu_torch.core.pos_embed import relative_pos_bias
@@ -423,6 +489,7 @@ def train_kernel_phase(spec, dev) -> dict[str, Totals]:
         knn_indices_cuda, knn_indices_reference, knn_max_bwd_cuda, knn_max_bwd_reference,
         knn_max_idx_cuda, knn_max_idx_reference, knn_max_neighbors,
     )
+    from nextou_tpu_torch.tools.exp_knn_bwd import device_ms_by_kernel
 
     calls = knn_calls(spec, TRAIN_BATCH)
     assert sum(calls.values()) == 14, calls
@@ -464,16 +531,13 @@ def train_kernel_phase(spec, dev) -> dict[str, Totals]:
                     raise AssertionError(f"K3's max differs on an equal selection at {B, N, M, C, k}")
                 err3 = max(err3, (maxv - want_max).abs().max().item())
                 # K4 on K3's own indices: selection noise does not enter
-                want_gy = knn_max_bwd_reference(yv, idx3, maxv, g, k)
-                scale = knn_max_bwd_reference(yv, idx3, maxv, g.abs(), k)
-                diff = (gy - want_gy).abs()
-                tol = 1e-6 + 1e-5 * want_gy.abs() + 2e-6 * scale
-                err4 = max(err4, diff.max().item())
-                worst4 = max(worst4, (diff / tol).max().item())
-                del want_max, want_gy, scale, diff, tol
+                err, worst = k4_error(gy, yv, idx3, maxv, g, k)
+                err4, worst4 = max(err4, err), max(worst4, worst)
+                del want_max
             t_k3 = cuda_ms(lambda: knn_max_idx_cuda(xn, yn, yv, rel, k))
             t_k2 = cuda_ms(lambda: knn_indices_cuda(xn, yn, rel, k))
             t_k4 = cuda_ms(lambda: knn_max_bwd_cuda(yv, idx3, maxv, g, k))
+            passes = device_ms_by_kernel(lambda: knn_max_bwd_cuda(yv, idx3, maxv, g, k), 5)
             p_k3 = cuda_ms(lambda: knn_max_idx_reference(xn, yn, yv, rel, k))
             p_k2 = cuda_ms(lambda: knn_indices_reference(xn, yn, rel, k))
             p_k4 = cuda_ms(lambda: knn_max_bwd_reference(yv, idx3, maxv, g, k))
@@ -490,8 +554,11 @@ def train_kernel_phase(spec, dev) -> dict[str, Totals]:
                 + plan_str(B, N, M, C, k, self_graph=self_graph) + "; "
                 f"K2 {t_k2:.3f} ms ({first_design('K2', torch.float32, (B, N, M, C, k))}) "
                 f"plain {p_k2:.3f} bound {b_k2:.4f} ({by2}); "
-                f"K4 {t_k4:.3f} ms plain {p_k4:.3f} bound {b_k4:.4f} ({by4}) "
-                f"max|err| {err4:.3g} = {worst4:.3f} of tolerance"
+                f"K4 {t_k4:.4f} ms ({first_design('K4', dtype, (B, N, M, C, k))}; device "
+                + ", ".join(f"{n} {t:.4f}" for n, t in passes.items())
+                + f") plain {p_k4:.3f} bound {b_k4:.4f} ({by4}) "
+                f"max|err| {err4:.3g} = {worst4:.3f} of tolerance, "
+                + bwd_plan_str(B, N, M, C, k, dtype == torch.bfloat16)
             )
             sel.check("K2/K3", (B, N, M, C, k))
             if worst4 > 1.0:
@@ -509,6 +576,22 @@ def train_kernel_phase(spec, dev) -> dict[str, Totals]:
         raise AssertionError("K4 is not bit-exact where the add order cannot matter")
     if not torch.equal(gy, knn_max_bwd_cuda(y, idx, maxv, g, k)):
         raise AssertionError("K4 gave other bits on a second launch")
+    # one candidate in every row of 10,752 (s3 pool's M, C and k): its rows in
+    # chunks whose partials are summed in chunk order; ties among them
+    for dtype in (torch.bfloat16, torch.float32):
+        yv, idx, g = hot_candidate_case(dev, 2, 10752, 1344, 264, 28)
+        yv = yv.to(dtype)
+        maxv = torch.stack([yv[b].float()[idx[b].long()].amax(1) for b in range(2)])
+        gy = knn_max_bwd_cuda(yv, idx, maxv, g, 28)
+        err, worst = k4_error(gy, yv, idx, maxv, g, 28)
+        if worst > 1.0:
+            raise AssertionError(f"K4 disagrees with the plain version on the hot candidate ({dtype})")
+        if not torch.equal(gy, knn_max_bwd_cuda(yv, idx, maxv, g, 28)):
+            raise AssertionError(f"K4 gave other bits on a second launch, hot candidate ({dtype})")
+        print(f"K4 hot candidate (2, 10752, 1344, 264, 28) values {str(dtype)[6:]}: "
+              f"max|err| {err:.3g} = {worst:.3f} of tolerance, the same bits twice; "
+              + bwd_plan_str(2, 10752, 1344, 264, 28, dtype == torch.bfloat16))
+        del yv, idx, g, maxv, gy
     # bf16 queries with f32 candidates: the f32 max is saved, so the
     # candidates' gradient is not lost
     yt = torch.randn(2, 150, 12, generator=gen, device=dev).requires_grad_()
@@ -1207,10 +1290,15 @@ def tools_phase(dev) -> dict:
     t_lib = cuda_ms(lambda: F.conv1d(x3, w3), iters=20)
     moved = (x.numel() + w.numel() + TH * W * CO) * 4
     bound, by = bound_ms(moved, 2.0 * TH * W * 3 * C * CO)
+    times = {}
     for transpose_out in (False, True):
         r = exp_conv_probe.run(dev, transpose_out)
         probe.add(1, r["ms"], r["plain_ms"], bound, by, r["err"], t_lib)
-    print(f"conv_probe: library conv1d {t_lib:.4f} ms, bound {bound:.6f} ms ({by}) per output order")
+        times["(TH, Co, W)" if transpose_out else "(TH, W, Co)"] = r["ms"]
+    floor = exp_conv_probe.launch_floor_ms(dev)
+    print("conv_probe per output order: " + ", ".join(f"{o} {t:.4f} ms" for o, t in times.items())
+          + f"; library conv1d {t_lib:.4f} ms; empty kernel {floor:.4f} ms; "
+          f"bound {bound:.6f} ms ({by})")
 
     dissect = Totals()
     exp_knn_dissect.knn_dissect_cuda.launches = 0

@@ -15,57 +15,56 @@
 // output order is index arithmetic at the store. What the probe keeps is the
 // function, its oracle, and the time of each output order: the (TH, Co, W)
 // store puts neighbouring lanes on neighbouring addresses, the (TH, W, Co)
-// store puts them Co floats apart.
+// store would put them Co floats apart if written as computed.
 //
 // What bounds it: launch overhead (0.2 MB moved, 6.7 MFLOP at the probe's
-// size). Design: one CTA per (output row h, block of 128 columns); it stages
-// the row's (3C, 128) patch and the weights in shared memory; a thread owns
-// one column and sums 8 output channels at a time as f32 FMAs.
+// size). Design: one CTA per (output row h, 32 columns, 8 output channels),
+// 160 CTAs at the probe's size, so that the grid covers the card's 132 SMs;
+// it stages the rows' (3C, 32) patch and the (3C, 8) weights in shared
+// memory, and a thread sums one output as 3C f32 FMAs (99 in series). The
+// (TH, Co, W) store is coalesced as it stands (lanes on columns); the
+// (TH, W, Co) one goes through shared memory, so that neighbouring threads
+// write neighbouring output channels of a column.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int COLS = 128;  // columns per CTA, one per thread
-constexpr int OB = 8;      // output channels summed at a time
+constexpr int COLS = 32;  // columns per CTA, one per lane
+constexpr int OB = 8;     // output channels per CTA, one per warp
 
-__global__ void __launch_bounds__(COLS) conv_probe_kernel(
+__global__ void __launch_bounds__(COLS * OB) conv_probe_kernel(
     const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ out,
-    int TH, int C, int W, int Co, int transpose_out) {
+    int C, int W, int Co, int transpose_out) {
   extern __shared__ float smem[];
   const int K = 3 * C;
   float* pat = smem;             // [K][COLS]
-  float* ws = smem + K * COLS;   // [K][Co]
-  const int h = blockIdx.x;
-  const int col = blockIdx.y * COLS + threadIdx.x;
-  for (int k = 0; k < K; ++k)
-    pat[k * COLS + threadIdx.x] = col < W ? x[((size_t)h * C + k) * W + col] : 0.f;
-  for (int i = threadIdx.x; i < K * Co; i += COLS) ws[i] = w[i];
-  __syncthreads();
-  if (col >= W) return;
-  for (int o0 = 0; o0 < Co; o0 += OB) {
-    float acc[OB];
-#pragma unroll
-    for (int i = 0; i < OB; ++i) acc[i] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float xv = pat[k * COLS + threadIdx.x];
-#pragma unroll
-      for (int i = 0; i < OB; ++i)
-        if (o0 + i < Co) acc[i] = fmaf(xv, ws[k * Co + o0 + i], acc[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < OB; ++i) {
-      const int o = o0 + i;
-      if (o >= Co) break;
-      if (transpose_out) {
-        out[((size_t)h * Co + o) * W + col] = acc[i];
-      } else {
-        out[((size_t)h * W + col) * Co + o] = acc[i];
-      }
-    }
+  float* ws = pat + K * COLS;    // [K][OB]
+  float* res = ws + K * OB;      // [COLS][OB + 1]
+  const int h = blockIdx.x, col0 = blockIdx.y * COLS, o0 = blockIdx.z * OB;
+  const int tx = threadIdx.x, ty = threadIdx.y, t = ty * COLS + tx;
+  const int col = col0 + tx, o = o0 + ty;
+  for (int k = ty; k < K; k += OB)
+    pat[k * COLS + tx] = col < W ? x[((size_t)h * C + k) * W + col] : 0.f;
+  for (int i = t; i < K * OB; i += COLS * OB) {
+    const int oo = o0 + i % OB;
+    ws[i] = oo < Co ? w[(size_t)(i / OB) * Co + oo] : 0.f;
   }
+  __syncthreads();
+  float acc = 0.f;
+  for (int k = 0; k < K; ++k) acc = fmaf(pat[k * COLS + tx], ws[k * OB + ty], acc);
+  if (transpose_out) {
+    if (col < W && o < Co) out[((size_t)h * Co + o) * W + col] = acc;
+    return;
+  }
+  res[tx * (OB + 1) + ty] = acc;
+  __syncthreads();
+  const int c2 = col0 + t / OB, o2 = o0 + t % OB;
+  if (c2 < W && o2 < Co) out[((size_t)h * W + c2) * Co + o2] = res[(t / OB) * (OB + 1) + t % OB];
 }
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -74,14 +73,21 @@ __global__ void __launch_bounds__(COLS) conv_probe_kernel(
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int conv_probe_forward(const void* x, const void* w, void* out, int TH, int C,
                                   int W, int Co, int transpose_out, void* stream) {
-  if (TH < 1 || C < 1 || W < 1 || Co < 1) return (int)cudaErrorInvalidValue;
-  const size_t bytes = (size_t)3 * C * (COLS + Co) * sizeof(float);
+  if (TH < 1 || C < 1 || W < 1 || Co < 1 || TH > 65535) return (int)cudaErrorInvalidValue;
+  const size_t bytes = ((size_t)3 * C * (COLS + OB) + COLS * (OB + 1)) * sizeof(float);
   if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       conv_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)TH, (unsigned)((W + COLS - 1) / COLS));
-  conv_probe_kernel<<<grid, COLS, bytes, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (float*)out, TH, C, W, Co, transpose_out);
+  const dim3 grid((unsigned)TH, (unsigned)((W + COLS - 1) / COLS), (unsigned)((Co + OB - 1) / OB));
+  conv_probe_kernel<<<grid, dim3(COLS, OB), bytes, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)w, (float*)out, C, W, Co, transpose_out);
+  return (int)cudaGetLastError();
+}
+
+// One CTA of an empty kernel on `stream`: the launch floor the probe's time
+// stands beside. Returns the cudaError_t of the launch.
+extern "C" int conv_probe_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

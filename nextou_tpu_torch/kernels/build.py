@@ -56,7 +56,10 @@ LIBRARIES: dict[str, Library] = {
         "knn_max_idx_forward": [_PTR] * 6 + [_INT] * 6 + [_PTR],
         "knn_indices_forward": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     }),
-    "knn_max_bwd": Library((), {"knn_max_backward": [_PTR] * 7 + [_INT] * 6 + [_PTR]}),
+    "knn_max_bwd": Library((), {
+        "knn_max_backward": [_PTR] * 6 + [_INT] * 8 + [_PTR],
+        "knn_max_bwd_plan": [_INT] * 6 + [_PTR],
+    }),
     "conv3d": Library(_MMA, {
         "conv3d_forward": [_PTR] * 4 + [_INT] * 13 + [_PTR],
         "conv3d_scratch_bytes": [_INT] * 6,
@@ -65,7 +68,10 @@ LIBRARIES: dict[str, Library] = {
         "conv_cl_forward": [_PTR] * 4 + [_INT] * 13 + [_PTR],
         "conv_cl_scratch_bytes": [_INT] * 6,
     }),
-    "conv_probe": Library((), {"conv_probe_forward": [_PTR] * 3 + [_INT] * 5 + [_PTR]}),
+    "conv_probe": Library((), {
+        "conv_probe_forward": [_PTR] * 3 + [_INT] * 5 + [_PTR],
+        "conv_probe_empty": [_PTR],
+    }),
     "knn_dissect": Library(_SELECT, {"knn_dissect_forward": [_PTR] * 5 + [_INT] * 6 + [_PTR]}),
 }
 

@@ -31,6 +31,7 @@ in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -272,6 +273,31 @@ def kernel_plan(
     return dict(zip(("rows", "window", "ctas", "smem", "per_sm"), out))
 
 
+def knn_max_bwd_plan(B: int, N: int, M: int, C: int, k: int, *, bf16: bool = False) -> dict:
+    """How K4 runs these arguments on the current card, with bf16 or f32
+    values: ``walk`` (1: one warp per CTA with the candidates' values
+    staged beside the gradient tile; 0: the scatter kernel, ``warps`` per
+    CTA sharing a larger tile), channel ``slices`` of 32, candidate
+    ``ranges`` of ``mrange`` rows, ``chunk_rows`` query rows per chunk and
+    ``chunks`` (above 1, partial tiles summed in chunk order by a second
+    kernel), ``smem`` bytes per CTA and ``per_sm``, the CTAs resident on one
+    SM."""
+    return dict(_bwd_plan(B, N, M, C, k, bool(bf16), torch.cuda.current_device()))
+
+
+@functools.cache
+def _bwd_plan(B, N, M, C, k, bf16, device) -> tuple:
+    out = (ctypes.c_int * 9)()
+    with torch.cuda.device(device):
+        rc = library("knn_max_bwd").knn_max_bwd_plan(
+            B, N, M, C, k, int(bf16), ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"knn_max_bwd_plan: CUDA error {rc}")
+    names = ("walk", "warps", "slices", "ranges", "mrange", "chunk_rows", "chunks", "smem",
+             "per_sm")
+    return tuple(zip(names, out))
+
+
 def knn_max_bwd_cuda(
     yv: torch.Tensor, idx: torch.Tensor, maxv: torch.Tensor, g: torch.Tensor, k: int
 ) -> torch.Tensor:
@@ -279,7 +305,8 @@ def knn_max_bwd_cuda(
     forward's selection ``idx (B, N, k)`` int32 (k distinct candidates in
     [0, M) per row), its f32 max ``maxv (B, N, C)`` and the f32 cotangent
     ``g (B, N, C)``. Returns the gradient ``(B, M, C)`` f32. The add order is
-    fixed by ``idx``, so two runs give the same bits.
+    fixed by ``idx`` and the plan (:func:`knn_max_bwd_plan`), so two runs
+    give the same bits.
 
     ``knn_max_bwd_cuda.launches`` counts the launches.
     """
@@ -292,14 +319,16 @@ def knn_max_bwd_cuda(
     )
     _check_k("knn_max_bwd_cuda", k, M)
     lib = library("knn_max_bwd")
+    bf16 = yv.dtype == torch.bfloat16
+    plan = dict(_bwd_plan(B, N, M, C, k, bf16, dev.index))
+    chunks = plan["chunks"]
     gy = torch.empty((B, M, C), dtype=torch.float32, device=dev)
-    share = torch.empty((B, N, C), dtype=torch.float32, device=dev)
-    bitmap = torch.empty((B, M, (N + 31) // 32), dtype=torch.int32, device=dev)
+    part = (torch.empty((chunks, B, M, C), dtype=torch.float32, device=dev)
+            if chunks > 1 else None)
     with torch.cuda.device(dev):
         rc = lib.knn_max_backward(
-            _ptr(yv), _ptr(idx), _ptr(maxv), _ptr(g), _ptr(gy), _ptr(share),
-            _ptr(bitmap), B, N, M, C, k, int(yv.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream,
+            _ptr(yv), _ptr(idx), _ptr(maxv), _ptr(g), _ptr(gy), _ptr(part), B, N, M, C, k,
+            int(bf16), plan["chunk_rows"], chunks, torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"knn_max_bwd_cuda: launch failed with CUDA error {rc}")

@@ -9,7 +9,8 @@ the same: the three kh-shifted row groups of a ``((TH+2)*C, W)`` slab as a
 matrix, stored as ``(TH, W, Co)`` or transposed as ``(TH, Co, W)``; at
 ``TH=4, C=Co=33, W=256`` in f32. The kernel is ``csrc/conv_probe.cu``. Both
 output orders are held against the numpy oracle of the JAX tool (max error
-under 1e-4: an f32 sum over 99 terms in another order) and timed.
+under 1e-4: an f32 sum over 99 terms in another order) and timed, beside
+the launch floor: an empty kernel launched the same way.
 """
 
 from __future__ import annotations
@@ -64,6 +65,17 @@ def conv_probe_cuda(x: torch.Tensor, w: torch.Tensor, transpose_out: bool) -> to
 conv_probe_cuda.launches = 0
 
 
+def launch_floor_ms(dev) -> float:
+    """Milliseconds per launch of an empty kernel through the probe's
+    library, timed as :func:`run` times the probe."""
+    lib = library("conv_probe")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if lib.conv_probe_empty(stream) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+        return cuda_ms(lambda: lib.conv_probe_empty(stream), iters=20)
+
+
 def probe_inputs() -> tuple[np.ndarray, np.ndarray]:
     """The JAX tool's inputs: seeds 0 and 1, the weights scaled by 0.1."""
     x = np.random.default_rng(0).standard_normal(((TH + 2) * C, W)).astype(np.float32)
@@ -105,6 +117,7 @@ def main() -> int:
     print(card())
     run(dev, False)
     run(dev, True)
+    print(f"empty kernel: {launch_floor_ms(dev):.4f} ms per launch")
     print("ALL PROBES PASS")
     return 0
 

@@ -25,8 +25,9 @@ from nextou_tpu_torch.tools.timing import card, require_card
 BATCH, WARMUP, TIMED, PROFILED, TOP = 2, 2, 3, 2, 25
 # kernel name fragment -> group; the first match wins
 GROUPS = (
-    ("knn_idx_kernel", "K3 knn_max_idx"), ("bwd_share_kernel", "K4 knn_max_bwd"),
-    ("bwd_reduce_kernel", "K4 knn_max_bwd"), ("dgrad", "conv (cuDNN)"),
+    ("knn_idx_kernel", "K3 knn_max_idx"), ("bwd_walk_kernel", "K4 knn_max_bwd"),
+    ("bwd_scatter_kernel", "K4 knn_max_bwd"), ("bwd_sum_kernel", "K4 knn_max_bwd"),
+    ("dgrad", "conv (cuDNN)"),
     ("wgrad", "conv (cuDNN)"), ("multi_tensor", "optimizer (_foreach)"),
     ("softmax", "loss (softmax)"), *FORWARD_GROUPS,
 )

@@ -56,6 +56,32 @@ def make_case(kind, self_graph, bias, n, m, c, seed, b=2):
     return x, y, rel
 
 
+def hot_candidate_case(b, n, m, c, k, seed):
+    """K4's inputs without a selection: every row names candidate 0 (at a
+    random place among its k) and k - 1 other distinct candidates. Values
+    are halves (exact in bf16), candidate 0 at 1.5 in every channel, so it
+    holds or shares the max of most rows: its gradient is a walk over every
+    row, with ties. Returns numpy ``yv (b, m, c)``, ``idx (b, n, k)`` int32
+    and ``g (b, n, c)``; the max is the caller's, in its dtype."""
+    rng = np.random.default_rng(seed)
+    yv = (np.round(rng.standard_normal((b, m, c)) * 2) / 2).astype(np.float32)
+    yv[:, 0] = 1.5
+    start = rng.integers(0, m - 1, (b, n, 1))
+    cols = np.concatenate(
+        [np.zeros((b, n, 1), np.int64), 1 + (start + np.arange(k - 1)) % (m - 1)], axis=2)
+    order = np.argsort(rng.random((b, n, k)), axis=2)
+    idx = np.take_along_axis(cols, order, axis=2).astype(np.int32)
+    g = rng.standard_normal((b, n, c)).astype(np.float32)
+    return yv, idx, g
+
+
+def selected_max(yv, idx):
+    """The forward's f32 max over the selected candidates (torch tensors)."""
+    from nextou_tpu_torch.core.graph import batched_index_select
+
+    return batched_index_select(yv.float(), idx.long()).amax(2)
+
+
 CASES = [
     # (self_graph, bias, n, m, c, k): unaligned N, self and cross, bias or not
     (True, False, 37, 37, 8, 5),
@@ -147,6 +173,73 @@ def test_k2_k3_k4_match_plain_on_gpu(values):
         knn_indices_cuda(xn, yn, rel, 33)
     with pytest.raises(ValueError):
         knn_max_idx_cuda(xn.bfloat16(), yn, yv, rel, k)  # coordinates must be f32
+
+
+def _k4_within_tolerance(gy, yv, idx, maxv, g, k):
+    """chip_smoke.py phase 4's tolerance: 1e-6 + 1e-5 |want| + 2e-6 x the
+    sum of the absolute contributions (f32 sums in another order)."""
+    want = knn_max_bwd_reference(yv, idx, maxv, g, k)
+    scale = knn_max_bwd_reference(yv, idx, maxv, g.abs(), k)
+    tol = 1e-6 + 1e-5 * want.abs() + 2e-6 * scale
+    assert ((gy - want).abs() <= tol).all(), (gy - want).abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("values", [torch.float32, torch.bfloat16])
+def test_k4_hot_candidate_pool_and_windows_on_gpu(values):
+    if not torch.cuda.is_available():
+        pytest.skip("K4 is CUDA code: it needs a CUDA card")
+    dev = torch.device("cuda")
+    # one candidate in all 10,752 rows of each batch entry (s3 pool's M, C, k),
+    # its rows in chunks whose partials are summed in chunk order
+    yv, idx, g = _on(dev, *hot_candidate_case(2, 10752, 1344, 264, 28, seed=3))
+    yv = yv.to(values)
+    maxv = selected_max(yv, idx)
+    assert port_knn.knn_max_bwd_plan(2, 10752, 1344, 264, 28, bf16=values == torch.bfloat16)[
+        "chunks"] > 1
+    gy = knn_max_bwd_cuda(yv, idx, maxv, g, 28)
+    _k4_within_tolerance(gy, yv, idx, maxv, g, 28)
+    assert torch.equal(gy, knn_max_bwd_cuda(yv, idx, maxv, g, 28))
+    # s2 pool's shape and s3 swin's (one CTA per window and slice covers
+    # every row), on K3's selection
+    for b, n, m, c, k in ((2, 10752, 168, 132, 14), (128, 168, 168, 264, 14)):
+        gen = torch.Generator(device=dev).manual_seed(n + c)
+        x = torch.randn(b, n, c, generator=gen, device=dev)
+        y = x if n == m else torch.randn(b, m, c, generator=gen, device=dev)
+        xn = l2_normalize(x).contiguous()
+        yn = xn if n == m else l2_normalize(y).contiguous()
+        yv = y.to(values).contiguous()
+        maxv, idx = knn_max_idx_cuda(xn, yn, yv, None, k)
+        g = torch.randn(b, n, c, generator=gen, device=dev)
+        gy = knn_max_bwd_cuda(yv, idx, maxv, g, k)
+        _k4_within_tolerance(gy, yv, idx, maxv, g, k)
+        assert torch.equal(gy, knn_max_bwd_cuda(yv, idx, maxv, g, k))
+    plan = port_knn.knn_max_bwd_plan(128, 168, 168, 264, 14, bf16=values == torch.bfloat16)
+    assert (plan["chunks"], plan["ranges"]) == (1, 1)
+    # more candidates than one tile holds: ranges of candidates, each CTA
+    # counting every row of its chunk
+    yv, idx, g = _on(dev, *hot_candidate_case(1, 3000, 2000, 40, 9, seed=5))
+    yv = yv.to(values)
+    maxv = selected_max(yv, idx)
+    assert port_knn.knn_max_bwd_plan(1, 3000, 2000, 40, 9, bf16=values == torch.bfloat16)[
+        "ranges"] > 1
+    gy = knn_max_bwd_cuda(yv, idx, maxv, g, 9)
+    _k4_within_tolerance(gy, yv, idx, maxv, g, 9)
+    assert torch.equal(gy, knn_max_bwd_cuda(yv, idx, maxv, g, 9))
+    # windows where each candidate receives one contribution: no add order
+    # can matter, so the bits are the plain version's
+    rng = np.random.default_rng(4)
+    b, n, k, c = 40, 168, 3, 264
+    yv = torch.from_numpy(rng.standard_normal((b, n * k, c), dtype=np.float32)).to(dev)
+    idx = torch.arange(n * k, dtype=torch.int32, device=dev).reshape(1, n, k).repeat(b, 1, 1)
+    yv = yv.to(values)
+    maxv = selected_max(yv, idx)
+    g = torch.from_numpy(rng.standard_normal((b, n, c), dtype=np.float32)).to(dev)
+    assert port_knn.knn_max_bwd_plan(b, n, n * k, c, k, bf16=values == torch.bfloat16)[
+        "chunks"] == 1
+    gy = knn_max_bwd_cuda(yv, idx, maxv, g, k)
+    assert torch.equal(gy, knn_max_bwd_reference(yv, idx, maxv, g, k))
+    assert torch.equal(gy, knn_max_bwd_cuda(yv, idx, maxv, g, k))
 
 
 @pytest.mark.gpu

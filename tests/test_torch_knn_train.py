@@ -24,7 +24,7 @@ from nextou_tpu_torch.kernels.knn import (
     knn_max_idx_reference,
     knn_max_neighbors,
 )
-from tests.test_torch_gpu import CASES, make_case
+from tests.test_torch_gpu import CASES, hot_candidate_case, make_case, selected_max
 from tests.test_torch_knn import emulate_k1_selection
 
 
@@ -186,40 +186,80 @@ def test_mixed_dtype_gradient_is_not_zero():
     assert rounded.abs().sum() < 0.05 * kept.abs().sum()  # the fault, reproduced
 
 
-def emulate_k4(yv, idx, maxv, g):
-    """K4's two passes in numpy, as ``nextou_tpu_torch/csrc/knn_max_bwd.cu``
-    runs them: the share per row and channel, a candidate-by-row membership
-    (the bitmap), then per candidate a walk over its rows in ascending order."""
+def emulate_k4(yv, idx, maxv, g, chunk_rows, width=32):
+    """K4 in numpy, in the add order of ``nextou_tpu_torch/csrc/knn_max_bwd.cu``:
+    per batch entry, slice of ``width`` channels and chunk of ``chunk_rows``
+    query rows, an f32 tile from zero takes each row's share (``g / cnt``;
+    ``g`` itself where one neighbour holds the max) at its tied candidates,
+    rows ascending and a row's tied neighbours in ascending j; the chunks'
+    partial tiles are then summed in chunk order. Indices outside [0, M)
+    are dropped."""
     B, M, C = yv.shape
     N, k = idx.shape[1:]
     gy = np.zeros((B, M, C), np.float32)
     for b in range(B):
-        sel = yv[b][idx[b]]  # (N, k, C)
-        cnt = (sel == maxv[b][:, None, :]).sum(1)
-        share = (g[b] / np.maximum(cnt, 1)).astype(np.float32)
-        member = np.zeros((M, N), bool)
-        member[idx[b], np.arange(N)[:, None]] = True
-        for m in range(M):
-            acc = np.zeros(C, np.float32)
-            for n in np.flatnonzero(member[m]):
-                acc = np.where(maxv[b, n] == yv[b, m], acc + share[n], acc)
-            gy[b, m] = acc
+        for c0 in range(0, C, width):
+            cs = slice(c0, c0 + width)
+            parts = []
+            for n0 in range(0, N, chunk_rows):
+                tile = np.zeros_like(gy[b, :, cs])
+                for n in range(n0, min(N, n0 + chunk_rows)):
+                    keep = (idx[b, n] >= 0) & (idx[b, n] < M)
+                    sel = yv[b, np.where(keep, idx[b, n], 0), cs]  # (k, width)
+                    eq = (sel == maxv[b, n, cs]) & keep[:, None]
+                    cnt = eq.sum(0).astype(np.float32)
+                    share = np.where(cnt > 1, g[b, n, cs] / np.maximum(cnt, 1), g[b, n, cs])
+                    for j in np.flatnonzero(keep):
+                        m = idx[b, n, j]
+                        tile[m] = np.where(eq[j], tile[m] + share, tile[m])
+                parts.append(tile)
+            acc = parts[0]
+            for part in parts[1:]:
+                acc = acc + part
+            gy[b, :, cs] = acc
     return gy
 
 
-@pytest.mark.parametrize("kind", ["random", "tie_built"])
-def test_k4_two_pass_emulation_matches_plain(kind):
-    # tie-built values make many equal maxima: the ties share the gradient
-    x, y, rel = make_case(kind, False, True, 70, 40, 12, seed=9)
+def _selected_inputs(kind, b, n, m, c, k, seed):
+    """K4's inputs on K3's plain selection (``random`` or ``tie_built``
+    values), or without one (``hot``: :func:`hot_candidate_case`)."""
+    if kind == "hot":
+        yv, idx, g = hot_candidate_case(b, n, m, c, k, seed)
+        return yv, idx, selected_max(_t(yv), _t(idx)).numpy(), g
+    x, y, rel = make_case(kind, m == n, True, n, m, c, seed=seed, b=b)
+    y = x if y is None else y
     g = np.random.default_rng(2).standard_normal(x.shape).astype(np.float32)
-    xn, yn, _, _ = _normalized_pair(x, y)
-    maxv, idx = knn_max_idx_reference(xn, yn, _t(y), _t(rel), 9)
-    want = knn_max_bwd_reference(_t(y), idx, maxv, _t(g), 9).numpy()
-    got = emulate_k4(y, idx.numpy(), maxv.numpy(), g)
+    xn, yn, _, _ = _normalized_pair(x, None if m == n else y)
+    maxv, idx = knn_max_idx_reference(xn, yn, _t(y), _t(rel), k)
+    return y, idx.numpy(), maxv.numpy(), g
+
+
+@pytest.mark.parametrize("kind,b,n,m,c,k,chunk_rows", [
+    pytest.param("random", 2, 70, 40, 12, 9, 32, id="random"),
+    pytest.param("tie_built", 2, 70, 40, 12, 9, 32, id="tie_built"),
+    # one candidate in every row: its walk is all of them
+    pytest.param("hot", 1, 300, 40, 12, 5, 64, id="hot_candidate"),
+    # 100 rows: a short last chunk; 40 channels: a slice of 32 and one of 8
+    pytest.param("random", 2, 100, 30, 40, 6, 32, id="ragged_chunk"),
+    # a window batch: one chunk covers each window
+    pytest.param("tie_built", 6, 24, 24, 12, 5, 32, id="windows"),
+])
+def test_k4_two_pass_emulation_matches_plain(kind, b, n, m, c, k, chunk_rows):
+    """The scatter pass by chunks of rows, then the sum of the partials."""
+    # tie-built values make many equal maxima: the ties share the gradient
+    yv, idx, maxv, g = _selected_inputs(kind, b, n, m, c, k, seed=9)
+    want = knn_max_bwd_reference(_t(yv), _t(idx), _t(maxv), _t(g), k).numpy()
+    got = emulate_k4(yv, idx, maxv, g, chunk_rows)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(emulate_k4(yv, idx, maxv, g, chunk_rows), got)
+    ties = (yv[np.arange(b)[:, None, None], idx] == maxv[:, :, None]).sum(2)
     if kind == "tie_built":  # most maxima are shared by several neighbours
-        ties = (y[np.arange(2)[:, None, None], idx.numpy()] == maxv.numpy()[:, :, None]).sum(2)
         assert (ties > 1).mean() > 0.5
+    if kind == "hot":  # candidate 0 receives from most rows, ties among them
+        assert (idx == 0).any(-1).all() and (ties > 1).any()
+        assert (maxv == 1.5).mean() > 0.5
+    if n <= chunk_rows:  # one chunk: the adds of a walk per candidate, ascending n
+        np.testing.assert_array_equal(got, want)
 
 
 # --- the dilated, stochastic graph -------------------------------------------------
