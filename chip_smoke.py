@@ -66,7 +66,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    3,564 products); bf16 within one rounding of the output, 2^-7 of the
    value + 1e-3. Per shape its time beside ``F.conv3d``'s (cuDNN), the plain
    version's and its bound (bytes at 3.35 TB/s or 2 B S_out 27 C Co
-   operations at the tensor cores' bf16 peak, for f32 the f32 peak);
+   operations at the tensor cores' bf16 peak, for f32 the f32 peak); for
+   bf16 also the previous design's time (``MMA_SYNC_DESIGN_MS``) and the
+   wgmma kernel's plan (block, N tiles, chunks, stages, staging route),
+   asserted equal to its Python mirror ``kernels.conv.conv_sm90_plan``;
 10. serving with the kernel on: one flagship volume through
     ``predict.main --conv-kernel 1`` (K5 launched exactly 40 times, K1 112),
     seconds, peak device memory, labels in range; then a narrow network of
@@ -94,7 +97,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     |y|), bf16 within one rounding of the output, 2^-7 of the value +
     1e-3), then every case of the JAX tool's ``CASES`` in bf16 at full size
     beside ``F.conv3d`` on ``channels_last_3d`` tensors (TF32 off), the
-    plain version and the bound;
+    plain version, the bound, the previous design's time and the plan (as
+    in phase 9);
 14. the trainer: five labelled 1x64x280x240 cases with all 14 labels go
     through ``nextou_tpu_torch.run_training.main`` (``nnUNetTrainer_NexToU``,
     fold 0, 2 epochs of 4 iterations, 50 eval steps per epoch, then the
@@ -1073,6 +1077,31 @@ FLAGSHIP_CONVS = [
 ]
 
 
+# K5's and T3's milliseconds in their previous design (mma.sync, 8 x 32
+# output positions x 72 output channels per CTA, K padded to 16 channels, one
+# staging buffer), bf16, on one NVIDIA H100 80GB HBM3 at a 700.00 W power
+# limit: K5 at batch 4 by tools.exp_conv_v2 bench (git commit 6b4ab89), T3 at
+# the JAX tool's CASES by tools.exp_conv_kernel (git commit 179b1e6).
+MMA_SYNC_DESIGN_MS = {
+    "K5": {"e1a": 6.496, "e1b": 3.988, "e2a": 3.878, "d1a": 7.331, "d1b": 3.960},
+    "T3": {"e0b": 2.170, "e1a": 5.018, "e1b": 1.927, "e2a": 1.525, "e2b": 1.044, "d4": 0.634,
+           "d0": 2.729},
+}
+
+
+def sm90_plan_str(layout: str, lib_name: str, args: tuple, py_args: tuple) -> str:
+    """The bf16 conv kernel's plan for one shape, as the library computes it,
+    after asserting that the Python mirror agrees."""
+    from nextou_tpu_torch.kernels.conv import (PLAN_KEYS, conv_sm90_plan, describe_plan,
+                                               library_plan)
+
+    got = library_plan(lib_name, args)
+    want = conv_sm90_plan(layout, *py_args)
+    if any(got[k] != want[k] for k in PLAN_KEYS):
+        raise AssertionError(f"{lib_name} plan {got} differs from the Python mirror's {want}")
+    return describe_plan(got)
+
+
 def conv_kernel_phase(spec, dev) -> Totals:
     """K5 at the five flagship convs of its region: bf16 at the serving
     batch and f32 at batch 1 against the plain version; times by CUDA events
@@ -1110,17 +1139,24 @@ def conv_kernel_phase(spec, dev) -> Totals:
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
             bound, by = bound_ms(nbytes(x, w, got), flops, peak)
             totals[dtype].add(1, t_k5, t_plain, bound, by, err, t_lib)
+            extra = "f32 FMA kernel (unchanged)"
+            if dtype == torch.bfloat16:
+                extra = (f"previous design {MMA_SYNC_DESIGN_MS['K5'][name]:.3f} ms; "
+                         + sm90_plan_str("ncdhw", "conv3d", (B, C, *spatial, Co, 3, 3, 3, *stride),
+                                         (B, C, spatial, Co, (3, 3, 3), stride)))
             print(f"K5 {name} B={B} {C}->{Co} stride {stride} in {spatial} {str(dtype)[6:]}: "
                   f"max|err| {err:.3g} ({differ:.2e} of values differ)  K5 {t_k5:.3f} ms "
                   f"({flops / t_k5 / 1e9:.1f} TFLOP/s)  cudnn {t_lib:.3f} ms  plain {t_plain:.3f} ms  "
-                  f"bound {bound:.4f} ms ({by})")
+                  f"bound {bound:.4f} ms ({by}); {extra}")
             if not ok:
                 raise AssertionError(f"K5 disagrees with the plain version at {name} {dtype}")
             del x, w, got
         torch.cuda.empty_cache()
     for dtype, t in totals.items():
+        prev = (f", previous design {sum(MMA_SYNC_DESIGN_MS['K5'].values()):.3f} ms"
+                if dtype == torch.bfloat16 else "")
         print(f"K5 over the five convs ({str(dtype)[6:]}): {t.ms:.3f} ms, cudnn {t.library_ms:.3f} "
-              f"ms, plain {t.plain_ms:.3f} ms, bound {t.bound_ms:.3f} ms")
+              f"ms, plain {t.plain_ms:.3f} ms, bound {t.bound_ms:.3f} ms{prev}")
     return totals[torch.bfloat16]
 
 
@@ -1338,14 +1374,19 @@ def conv_cl_phase(dev) -> tuple[Totals, int]:
         r = t3.time_case(t3.pallas_conv, shape, co, kernel, stride, dev)
         bound, by = bound_ms(r["bytes"], r["flops"], PEAK_BF16_FLOPS)
         totals.add(1, r["ms"], r["plain_ms"], bound, by, r["max_abs_err"], r["library_ms"])
+        plan = sm90_plan_str("ndhwc", "conv_cl", (shape[0], *shape[1:4], shape[4], co, *kernel,
+                                                   *stride),
+                             (shape[0], shape[4], shape[1:4], co, kernel, stride))
         print(f"conv_cl {name} {shape}->{co} k{kernel} s{stride} bf16: {r['ms']:.3f} ms "
               f"({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s)  F.conv3d channels_last "
               f"{r['library_ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  bound {bound:.4f} ms ({by})  "
-              f"max|err| {r['max_abs_err']:.3g}")
+              f"max|err| {r['max_abs_err']:.3g}; previous design "
+              f"{MMA_SYNC_DESIGN_MS['T3'][name]:.3f} ms; {plan}")
     launches = t3.conv_cl_cuda.launches
     print(f"conv_cl over the {len(t3.CASES)} cases: {totals.ms:.3f} ms, F.conv3d "
           f"{totals.library_ms:.3f} ms, plain {totals.plain_ms:.3f} ms, bound "
-          f"{totals.bound_ms:.3f} ms; {launches} launches in the tool's run")
+          f"{totals.bound_ms:.3f} ms, previous design {sum(MMA_SYNC_DESIGN_MS['T3'].values()):.3f} "
+          f"ms; {launches} launches in the tool's run")
     return totals, launches
 
 

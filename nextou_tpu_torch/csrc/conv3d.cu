@@ -21,32 +21,23 @@
 // GFLOP per patch against about 0.5 GB moved, so the bf16 tensor cores would
 // need about 0.8 ms per patch and the memory 0.15 ms.
 //
-// Two kernels share one tiling: one CTA computes, for one (batch, output
-// depth), RH = 8 output rows x TW = 32 output columns x TCO = 72 output
-// channels (66 and 132, the flagship's, are 1 and 2 such tiles with 8% to
-// spare). The input channels go by in chunks; per chunk the CTA stages in
-// shared memory the input halo (kd depths x the rows and columns the tile's
-// taps reach, zero outside x) and the chunk's weights, and then multiplies.
-//
-// bf16 (conv3d_mma_kernel): an implicit GEMM on the tensor cores,
-// mma.sync.m16n8k16 with f32 accumulators. M is 16 output columns of a row,
-// N is 8 output channels, K is 16 input channels of one tap: a chunk is 16
-// channels and every tap is one k-step (C = 33 pads to 48, 66 to 80, 132 to
-// 144). A warp owns one output row: 2 m-tiles x 9 n-tiles, 72 sums a
-// thread. Both fragments want pairs of neighbouring k, that is channels,
-// in one 32-bit word, and NCDHW keeps channels farthest apart: the halo is
-// staged two channels to a word (two 2-byte loads, one store), with one
-// plane of (depth, row, column) words per channel pair, padded so that the
-// four pairs a fragment load touches fall 8 banks apart. The weights are
-// repacked once per launch by pack_weights_kernel into the order the CTAs
-// stage them, [tap][output channel][8 words], swizzled against bank
-// conflicts, so that staging them is 16-byte copies. The halo's loads are
-// started 8 elements a thread before the first is stored: with one load in
-// flight per thread the staging took nine tenths of the kernel's time.
-// Left on the table: staging and products do not overlap inside a CTA (no
-// cp.async or TMA ring; two CTAs share an SM at stride 1, one at stride 2,
-// whose halo is four times the size), wgmma, a 32-column m-tile's A
-// fragments are not reused across kw, and K pads to 16.
+// bf16: the wgmma implicit GEMM of conv_sm90.cuh (a staging ring, N tiles as
+// wide as Co, K in granules of 8 channels); this file gives it NCDHW's halo
+// and store. The halo: the channel-inner granules that ldmatrix reads have
+// to be gathered from 8 channel planes, in one of two routes that the plan
+// picks from W:
+// - W % 8 == 0 (the flagship's; ROUTE_VEC): a thread takes 8 columns of one
+//   (depth, row) that start at a multiple of 8 in x, loads them 16 bytes a
+//   channel (8 loads), and transposes the 8 x 8 block in registers
+//   (byte_perm) into 8 granules: an eighth of the loads of a granule at a
+//   time, and at stride 2 the run of columns the halo needs is read whole;
+// - otherwise (ROUTE_REGS): a thread loads a granule's 8 values (one per
+//   plane; neighbouring threads on neighbouring columns, so each load is
+//   coalesced), PRODUCER_BATCH granules in flight at once, packs them in
+//   registers and stores 16 bytes.
+// The store: the block's bf16 tile is kept [channel][position] in shared
+// memory, and written along W, 16 bytes a store where W and the block's
+// columns are multiples of 8 (the flagship's are).
 //
 // f32 (conv3d_fma_kernel): the same sum as f32 FMAs, never TF32. A warp owns 8
 // output channels and a lane one output column, so a thread holds 8 rows x
@@ -57,15 +48,14 @@
 
 #include <stddef.h>
 
-#include "mma_bf16.cuh"
+#include "conv_sm90.cuh"
 
 namespace {
 
-constexpr int TW = 32;   // output columns per CTA
-constexpr int RH = 8;    // output rows per CTA
-constexpr int TCO = 72;  // output channels per CTA
-// the f32 kernel: a warp per 8 output channels, a lane per output column
-constexpr int RCO = 8;
+constexpr int TW = 32;   // the f32 kernel: output columns per CTA
+constexpr int RH = 8;    // ... output rows per CTA
+constexpr int TCO = 72;  // ... output channels per CTA
+constexpr int RCO = 8;   // ... a warp per 8 output channels, a lane per output column
 constexpr int WARPS = TCO / RCO;
 constexpr int THREADS = WARPS * 32;
 constexpr int SMEM_FLOATS = 24 * 1024;  // 96 KB: two CTAs per SM
@@ -76,7 +66,7 @@ struct Geometry {
   int kd, kh, kw;          // kernel dims, each 1 or 3
   int sd, sh, sw;          // strides, each 1 or 2
   int in_rows, in_cols;    // the halo of one tile: (RH-1)*sh + kh, (TW-1)*sw + kw
-  int chunk;               // the f32 kernel: input channels staged at a time
+  int chunk;               // input channels staged at a time
   int n_wt, n_ht;          // column and row tiles per output plane
 };
 
@@ -195,223 +185,206 @@ cudaError_t launch_fma(const void* x, const void* w, void* out, int B, Geometry 
   return cudaGetLastError();
 }
 
-// ---- bf16: the tensor-core kernel ------------------------------------------------
+// ---- bf16: NCDHW's halo and store for the wgmma core ---------------------------------
 
-constexpr int MMA_WARPS = 8;    // one output row of the tile each
-constexpr int MMA_THREADS = MMA_WARPS * 32;
-constexpr int KC = MMA_KC;      // input channels per chunk: one k16 step per tap
-constexpr int KW2 = MMA_KW2;    // ... as 32-bit words of two bf16
-constexpr int NT = TCO / 8;     // n8 tiles of output channels per CTA
-constexpr int MT = TW / 16;     // m16 tiles of output columns per warp
-constexpr int STAGE_U = 8;      // halo elements a thread loads before it stores any
-
-// plane is the padded size of one channel pair's halo, in words.
-__global__ void __launch_bounds__(MMA_THREADS, 2) conv3d_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const unsigned* __restrict__ wp,
-    __nv_bfloat16* __restrict__ out, Geometry g, int plane) {
-  extern __shared__ __align__(16) unsigned smem_u[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int grp = lane >> 2;  // the fragment's row (A, C) or column (B)
-  const int tig = lane & 3;   // the fragment's pair of k (A, B) or of columns (C)
-  const int taps = g.kd * g.kh * g.kw;
-  unsigned* xs = smem_u;                 // [KW2][plane]: (kd, in_rows, in_cols) per pair
-  unsigned* ws = smem_u + KW2 * plane;   // [taps][TCO][KW2], swizzled
-  const int n_rows = KW2 * g.kd * g.in_rows;
-  int* row_off = reinterpret_cast<int*>(ws + taps * TCO * KW2);  // [n_rows]
-  int* row_dst = row_off + n_rows;                               // [n_rows]
-
-  int t = blockIdx.x;
-  const int ow0 = (t % g.n_wt) * TW;
-  t /= g.n_wt;
-  const int oh0 = (t % g.n_ht) * RH;
-  const int od = t / g.n_ht;
-  const int co0 = blockIdx.y * TCO;
-  const int b = blockIdx.z;
-  const int d_in0 = od * g.sd - (g.kd - 1) / 2;
-  const int h_in0 = oh0 * g.sh - (g.kh - 1) / 2;
-  const int w_in0 = ow0 * g.sw - (g.kw - 1) / 2;
-  const size_t hw = (size_t)g.H * g.W;
-  const size_t chw = (size_t)g.D * hw;
-  const __nv_bfloat16* xb = x + (size_t)b * g.C * chw;
-  const int n_chunks = (g.C + KC - 1) / KC;
-  const int ws_words = taps * TCO * KW2;
-  const uint4* wsrc = reinterpret_cast<const uint4*>(wp + (size_t)blockIdx.y * n_chunks * ws_words);
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-
-  float acc[MT][NT][4];
+struct Ncdhw {
+  // Granule gr of halo position (dd, r, col): channels c0 + 8 gr .. + 7 at
+  // one (d, h, w), 8 loads from 8 planes, packed into 16 bytes.
+  // W % 8 == 0 (ROUTE_VEC): a thread takes 8 columns of one (depth, row)
+  // that start at a multiple of 8 in x, loads them 16 bytes a channel, and
+  // transposes the 8 x 8 block in registers into 8 granules; columns that
+  // fall outside the halo are not stored.
+  static __device__ __forceinline__ void stage_vec(const unsigned short* __restrict__ xb,
+                                                   const sm90::Geom& g, const sm90::Tile& t,
+                                                   unsigned char* halo, int c0, int gpc,
+                                                   int ptid) {
+    constexpr int P = sm90::STAGERS;
+    const size_t hw = (size_t)g.H * g.W, chw = (size_t)g.D * hw;
+    const int gw0 = (t.w0 >= 0 ? t.w0 : t.w0 - 7) / 8 * 8;  // floor to a multiple of 8
+    const int n_groups = (t.w0 + g.in_cols - gw0 + 7) / 8;
+    const int n_tasks = gpc * g.kd * g.in_rows * n_groups;
+    for (int task = ptid; task < n_tasks; task += P) {
+      const int grp = task % n_groups;
+      int rest = task / n_groups;
+      const int r = rest % g.in_rows;
+      rest /= g.in_rows;
+      const int dd = rest % g.kd, gr = rest / g.kd;
+      const int w = gw0 + 8 * grp;
+      const int d = t.d0 + dd, h = t.h0 + r, c = c0 + gr * 8;
+      const bool inside = d >= 0 && d < g.D && h >= 0 && h < g.H && w >= 0 && w < g.W;
+      const uint4* src = reinterpret_cast<const uint4*>(
+          xb + (size_t)c * chw + (size_t)d * hw + (size_t)h * g.W + w);
+      uint4 v[8];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+      for (int i = 0; i < 8; ++i)
+        v[i] = inside && c + i < g.C ? src[i * chw / 8] : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int j = 0; j < 8; ++j) {
+        const int col = w + j - t.w0;
+        if (col < 0 || col >= g.in_cols) continue;
+        // position j of channels 2k and 2k + 1: one 32-bit word of the granule
+        const unsigned sel = j & 1 ? 0x7632 : 0x5410;
+        unsigned word[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
-
-  // where each (pair, depth, row) of the halo starts in x, relative to the
-  // chunk's first channel, or -1 outside x: the same for every chunk
-  for (int r = threadIdx.x; r < n_rows; r += MMA_THREADS) {
-    const int hr = r % g.in_rows;
-    const int pd = r / g.in_rows;
-    const int d = d_in0 + pd % g.kd;
-    const int h = h_in0 + hr;
-    const bool inside = d >= 0 && d < g.D && h >= 0 && h < g.H;
-    row_off[r] = inside ? (int)(2 * (pd / g.kd) * chw + (size_t)d * hw + (size_t)h * g.W) : -1;
-    row_dst[r] = (pd / g.kd) * plane + (pd % g.kd * g.in_rows + hr) * g.in_cols;
-  }
-  __syncthreads();
-
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    const int c0 = chunk * KC;
-    // the input halo, two channels to a word. A thread takes every
-    // MMA_THREADS-th element of the (row, column) grid, STAGE_U at a time: all
-    // their loads are in flight before the first is packed and stored.
-    {
-      const __nv_bfloat16* xc = xb + (size_t)c0 * chw;
-      const int n_elems = n_rows * g.in_cols;
-      const int step_r = MMA_THREADS / g.in_cols, step_c = MMA_THREADS % g.in_cols;
-      // rows of channel pairs that lie below C: both channels, the first alone
-      const int r_both = min(KW2, (g.C - c0) / 2) * g.kd * g.in_rows;
-      const int r_first = min(KW2, (g.C - c0 + 1) / 2) * g.kd * g.in_rows;
-      int r = threadIdx.x / g.in_cols, col = threadIdx.x % g.in_cols;
-      for (int e0 = threadIdx.x; e0 < n_elems; e0 += STAGE_U * MMA_THREADS) {
-        __nv_bfloat16 lo[STAGE_U], hi[STAGE_U];
-        int dst[STAGE_U];
-#pragma unroll
-        for (int u = 0; u < STAGE_U; ++u) {
-          lo[u] = hi[u] = zero;
-          dst[u] = -1;
-          if (e0 + u * MMA_THREADS < n_elems) {
-            const int off = row_off[r];
-            const int wi = w_in0 + col;
-            dst[u] = row_dst[r] + col;
-            if (off >= 0 && wi >= 0 && wi < g.W && r < r_first) {
-              lo[u] = xc[off + wi];
-              if (r < r_both) hi[u] = xc[off + chw + wi];
-            }
-          }
-          col += step_c;
-          r += step_r;
-          if (col >= g.in_cols) {
-            col -= g.in_cols;
-            ++r;
-          }
+        for (int k = 0; k < 4; ++k) {
+          const uint4 lo = v[2 * k], hi = v[2 * k + 1];
+          const unsigned a = (j >> 1) == 0 ? lo.x : (j >> 1) == 1 ? lo.y : (j >> 1) == 2 ? lo.z : lo.w;
+          const unsigned b = (j >> 1) == 0 ? hi.x : (j >> 1) == 1 ? hi.y : (j >> 1) == 2 ? hi.z : hi.w;
+          word[k] = __byte_perm(a, b, sel);
         }
-#pragma unroll
-        for (int u = 0; u < STAGE_U; ++u)
-          if (dst[u] >= 0) xs[dst[u]] = pack2(lo[u], hi[u]);
+        const int pos = sm90::halo_pos(g, dd, r, col);
+        *reinterpret_cast<uint4*>(halo + sm90::granule_offset(g, pos, gr)) =
+            make_uint4(word[0], word[1], word[2], word[3]);
       }
     }
-    // the chunk's weights, already in their shared-memory order: 16-byte copies
-    {
-      const uint4* src = wsrc + (size_t)chunk * (ws_words / 4);
-      uint4* dst = reinterpret_cast<uint4*>(ws);
-#pragma unroll 4
-      for (int i = threadIdx.x; i < ws_words / 4; i += MMA_THREADS) dst[i] = src[i];
-    }
-    __syncthreads();
+  }
 
-    const unsigned* xlo = xs + tig * plane + grp * g.sw;
-    const unsigned* xhi = xlo + 4 * plane;
-    const int swz = swizzle(grp);
-    for (int kdi = 0; kdi < g.kd; ++kdi) {
-      for (int khi = 0; khi < g.kh; ++khi) {
-        const int row = (kdi * g.in_rows + warp * g.sh + khi) * g.in_cols;
-        const unsigned* wtap = ws + ((kdi * g.kh + khi) * g.kw * TCO + grp) * KW2;
-        for (int kwi = 0; kwi < g.kw; ++kwi) {
-          unsigned a[MT][4];
+  static __device__ __forceinline__ void stage_halo(const __nv_bfloat16* __restrict__ x,
+                                                    const sm90::Geom& g, const sm90::Tile& t,
+                                                    unsigned char* halo, int c0, int gpc, int ptid,
+                                                    uint32_t full) {
+    constexpr int U = sm90::PRODUCER_BATCH, P = sm90::STAGERS;
+    const size_t hw = (size_t)g.H * g.W, chw = (size_t)g.D * hw;
+    const unsigned short* xb =
+        reinterpret_cast<const unsigned short*>(x) + (size_t)t.b * g.C * chw;
+    if (g.route == sm90::ROUTE_VEC) {
+      stage_vec(xb, g, t, halo, c0, gpc, ptid);
+      sm90::mbar_arrive(full);
+      return;
+    }
+    const int n_tasks = gpc * g.kd * g.in_rows * g.in_cols;
+    // U granules' 8 loads each are in flight before the first is stored
+    for (int task0 = ptid; task0 < n_tasks; task0 += U * P) {
+      unsigned short e[U][8];
+      int dst[U];
 #pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            const int o = row + kwi + m * 16 * g.sw;
-            a[m][0] = xlo[o];
-            a[m][1] = xlo[o + 8 * g.sw];
-            a[m][2] = xhi[o];
-            a[m][3] = xhi[o + 8 * g.sw];
-          }
-          const unsigned* wrow = wtap + kwi * TCO * KW2;
+      for (int u = 0; u < U; ++u) {
+        const int task = task0 + u * P;
+        dst[u] = -1;
 #pragma unroll
-          for (int n = 0; n < NT; ++n) {
-            const unsigned b0 = wrow[n * 8 * KW2 + (tig ^ swz)];
-            const unsigned b1 = wrow[n * 8 * KW2 + ((tig + 4) ^ swz)];
+        for (int i = 0; i < 8; ++i) e[u][i] = 0;
+        if (task >= n_tasks) continue;
+        const int col = task % g.in_cols;
+        int rest = task / g.in_cols;
+        const int r = rest % g.in_rows;
+        rest /= g.in_rows;
+        const int dd = rest % g.kd, gr = rest / g.kd;
+        const int d = t.d0 + dd, h = t.h0 + r, w = t.w0 + col;
+        const int c = c0 + gr * 8;
+        dst[u] = sm90::granule_offset(g, sm90::halo_pos(g, dd, r, col), gr);
+        if (d >= 0 && d < g.D && h >= 0 && h < g.H && w >= 0 && w < g.W) {
+          const unsigned short* src = xb + (size_t)c * chw + (size_t)d * hw + (size_t)h * g.W + w;
 #pragma unroll
-            for (int m = 0; m < MT; ++m) mma_bf16(acc[m][n], a[m], b0, b1);
-          }
+          for (int i = 0; i < 8; ++i)
+            if (c + i < g.C) e[u][i] = src[i * chw];
         }
       }
-    }
-    __syncthreads();  // the next chunk overwrites xs and ws
-  }
-
-  const int oh = oh0 + warp;
-  if (oh >= g.Ho) return;
-  const size_t ohw = (size_t)g.Ho * g.Wo;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
+      for (int u = 0; u < U; ++u) {
+        if (dst[u] < 0) continue;
+        unsigned v[4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int co = co0 + n * 8 + 2 * tig + i;
-      if (co >= g.Co) continue;
-      __nv_bfloat16* dst = out + (((size_t)b * g.Co + co) * g.Do + od) * ohw + (size_t)oh * g.Wo;
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const int ow = ow0 + m * 16 + grp;
-        if (ow < g.Wo) dst[ow] = __float2bfloat16(acc[m][n][i]);
-        if (ow + 8 < g.Wo) dst[ow + 8] = __float2bfloat16(acc[m][n][2 + i]);
+        for (int i = 0; i < 4; ++i) v[i] = (unsigned)e[u][2 * i] | ((unsigned)e[u][2 * i + 1] << 16);
+        *reinterpret_cast<uint4*>(halo + dst[u]) = make_uint4(v[0], v[1], v[2], v[3]);
       }
     }
+    sm90::mbar_arrive(full);
   }
-}
 
-int mma_plane(const Geometry& g) {
-  // words of one channel pair's halo, padded so that the four pairs a
-  // fragment load touches fall 8 banks apart
-  const int raw = g.kd * g.in_rows * g.in_cols;
-  return raw + ((8 - raw % 16) + 16) % 16;
-}
+  // [channel][position], a row of TM + 8 (16-byte rows, fewer bank conflicts)
+  static __device__ __forceinline__ int tile_index(int m, int co, int) {
+    return co * (sm90::TM + 8) + m;
+  }
 
-cudaError_t launch_mma(const void* x, const void* w, void* out, void* scratch, int B,
-                       const Geometry& g, cudaStream_t stream) {
-  const int taps = g.kd * g.kh * g.kw;
-  // w is (Co, C, taps)
-  cudaError_t err = pack_weights<TCO>(w, scratch, g.C, g.Co, taps, 1, taps, g.C * taps, stream);
-  if (err != cudaSuccess) return err;
-  const int plane = mma_plane(g);
-  const size_t bytes = ((size_t)KW2 * plane + (size_t)taps * TCO * KW2 +
-                        2 * (size_t)KW2 * g.kd * g.in_rows) * sizeof(unsigned);
-  // a channel's offset in x must fit the halo table's 32 bits
-  if (bytes > 227 * 1024 || (size_t)KC * g.D * g.H * g.W > 0x7fffffffULL)
-    return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(conv3d_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(g.n_wt * g.n_ht * g.Do), (unsigned)((g.Co + TCO - 1) / TCO),
-                  (unsigned)B);
-  conv3d_mma_kernel<<<grid, MMA_THREADS, bytes, stream>>>(
-      (const __nv_bfloat16*)x, (const unsigned*)scratch, (__nv_bfloat16*)out, g, plane);
-  return cudaGetLastError();
-}
+  // Runs along W: out[b, co, od, oh, ow0 ..].
+  template <int V>
+  static __device__ __forceinline__ void store_runs(__nv_bfloat16* out, const sm90::Geom& g,
+                                                    const sm90::Tile& t,
+                                                    const __nv_bfloat16* tile, int tid) {
+    const int tw = min(g.tw, g.Wo - t.ow0), th = min(g.th, g.Ho - t.oh0);
+    const int n = min(g.n, g.Co - t.co0);
+    const size_t plane = (size_t)g.Ho * g.Wo, ch = (size_t)g.Do * plane;
+    __nv_bfloat16* ob = out + ((size_t)t.b * g.Co + t.co0) * ch + t.od * plane +
+                        (size_t)t.oh0 * g.Wo + t.ow0;
+    const int units = tw / V, items = n * th * units;
+    for (int it = tid; it < items; it += sm90::CONSUMER_WARPS * 32) {
+      const int u = it % units, rest = it / units;
+      const int r = rest % th, co = rest / th;
+      sm90::copy_bf16<V>(ob + co * ch + (size_t)r * g.Wo + u * V,
+                         tile + tile_index(r * g.tw + u * V, co, 0));
+    }
+  }
+
+  static __device__ __forceinline__ void store(__nv_bfloat16* out, const sm90::Geom& g,
+                                               const sm90::Tile& t, const __nv_bfloat16* tile,
+                                               int, int tid) {
+    if (g.Wo % 8 == 0 && g.tw % 8 == 0)
+      store_runs<8>(out, g, t, tile, tid);
+    else
+      store_runs<1>(out, g, t, tile, tid);
+  }
+};
 
 bool one_of(int v, int a, int b) { return v == a || v == b; }
 
+bool valid(int B, int C, int D, int H, int W, int Co, int kd, int kh, int kw, int sd, int sh,
+           int sw) {
+  return B >= 1 && C >= 1 && D >= 1 && H >= 1 && W >= 1 && Co >= 1 && B <= 65535 &&
+         one_of(kd, 1, 3) && one_of(kh, 1, 3) && one_of(kw, 1, 3) && one_of(sd, 1, 2) &&
+         one_of(sh, 1, 2) && one_of(sw, 1, 2);
+}
+
 }  // namespace
 
-// Bytes of scratch that conv3d_forward needs for bf16 inputs (the packed
-// weights); 0 for f32, -1 where they are too large.
-extern "C" int conv3d_scratch_bytes(int C, int Co, int kd, int kh, int kw, int bf16) {
-  return packed_weight_bytes<TCO>(C, Co, kd * kh * kw, bf16);
+// The bf16 kernel's plan for this conv: out[14] = {th, tw, n, n_tiles,
+// granules, cs, stages, splits, route, chunks, ctas, smem, k_steps,
+// scratch} (conv_sm90_plan). Returns a cudaError_t (0 on success).
+extern "C" int conv3d_plan(int B, int C, int D, int H, int W, int Co, int kd, int kh, int kw,
+                           int sd, int sh, int sw, int* out) {
+  sm90::Geom g;
+  if (!valid(B, C, D, H, W, Co, kd, kh, kw, sd, sh, sw) ||
+      !sm90::conv_sm90_plan(sm90::NCDHW, B, C, D, H, W, Co, kd, kh, kw, sd, sh, sw, g, out))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// The bf16 weights w (Co, C, kd, kh, kw) packed as the kernel stages them,
+// into wp (the plan's scratch bytes): what conv3d_forward does first.
+extern "C" int conv3d_pack_weights(const void* w, void* wp, int B, int C, int D, int H, int W,
+                                   int Co, int kd, int kh, int kw, int sd, int sh, int sw,
+                                   void* stream) {
+  sm90::Geom g;
+  int plan[sm90::PLAN_INTS];
+  if (!valid(B, C, D, H, W, Co, kd, kh, kw, sd, sh, sw) ||
+      !sm90::conv_sm90_plan(sm90::NCDHW, B, C, D, H, W, Co, kd, kh, kw, sd, sh, sw, g, plan))
+    return (int)cudaErrorInvalidValue;
+  const int taps = kd * kh * kw;
+  return (int)sm90::pack_weights(w, wp, g, 1, taps, C * taps, (cudaStream_t)stream);
 }
 
 // x (B, C, D, H, W), w (Co, C, kd, kh, kw), out (B, Co, Do, Ho, Wo) with
 // each output extent (n + 2 * ((k - 1) / 2) - k) / s + 1: all bf16
 // (bf16 != 0) or all f32, contiguous, on the device of `stream`; scratch:
-// conv3d_scratch_bytes bytes on that device, 16-byte aligned (unused for f32).
+// the plan's scratch bytes on that device, 16-byte aligned (unused for f32).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int conv3d_forward(const void* x, const void* w, void* out, void* scratch, int B,
                               int C, int D, int H, int W, int Co, int kd, int kh, int kw,
                               int sd, int sh, int sw, int bf16, void* stream) {
-  if (B < 1 || C < 1 || D < 1 || H < 1 || W < 1 || Co < 1 || B > 65535 ||
-      !one_of(kd, 1, 3) || !one_of(kh, 1, 3) || !one_of(kw, 1, 3) ||
-      !one_of(sd, 1, 2) || !one_of(sh, 1, 2) || !one_of(sw, 1, 2))
-    return (int)cudaErrorInvalidValue;
+  if (!valid(B, C, D, H, W, Co, kd, kh, kw, sd, sh, sw)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    sm90::Geom g;
+    int plan[sm90::PLAN_INTS];
+    if (scratch == nullptr ||
+        !sm90::conv_sm90_plan(sm90::NCDHW, B, C, D, H, W, Co, kd, kh, kw, sd, sh, sw, g, plan))
+      return (int)cudaErrorInvalidValue;
+    // the 16-byte loads of ROUTE_VEC need x 16-byte aligned
+    if (g.route == sm90::ROUTE_VEC && reinterpret_cast<uintptr_t>(x) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
+    const int taps = kd * kh * kw;
+    return (int)sm90::conv_sm90_launch<Ncdhw>(x, w, out, scratch, g, plan[11], 1, taps,
+                                              C * taps, s);
+  }
   Geometry g;
   g.C = C, g.D = D, g.H = H, g.W = W, g.Co = Co;
   g.kd = kd, g.kh = kh, g.kw = kw, g.sd = sd, g.sh = sh, g.sw = sw;
@@ -426,10 +399,5 @@ extern "C" int conv3d_forward(const void* x, const void* w, void* out, void* scr
   g.chunk = 0;
   if ((long long)g.n_wt * g.n_ht * g.Do > 0x7fffffffLL || (g.Co + TCO - 1) / TCO > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    return (int)launch_mma(x, w, out, scratch, B, g, s);
-  }
   return (int)launch_fma(x, w, out, B, g, s);
 }

@@ -25,35 +25,23 @@
 // 6 times as long as the bytes; at e1a and e2a the two are about even (1.0
 // and 1.2 times); at e0b and d0 (kd = 1, 33 output channels) the bytes bound
 // it (0.22 and 0.33 ms against 0.11 and 0.22 ms of operations). So the design
-// spends its effort on the products: an implicit GEMM on mma.sync with the
-// operands in shared memory. For the bytes it reads x in contiguous channel
-// runs, about 1.3 times over at e0b and d0 (the halos of neighbouring tiles
-// overlap; one tile of 72 output channels covers all 33), and writes each
-// output once. There it still runs 8 to 10 times its bound, because padding
-// C and Co to the tiles multiplies the products 3.2 and 2.6 times (below).
+// spends its effort on the products, and for the bytes reads x in
+// contiguous channel runs and writes each output once.
 //
-// One CTA computes, for one (n, od), RH = 8 output rows x TW = 32 output
-// columns x TCO = 72 output channels. The input channels go by in chunks;
-// per chunk the CTA stages the input halo (kd depths x the rows and columns
-// the tile's taps reach, zero outside x) and the chunk's weights, then
-// multiplies.
-//
-// bf16 (conv_cl_mma_kernel): M is 16 output columns of a row, N 8 output
-// channels, K the 16 channels of a chunk at one tap: every tap is one k-step,
-// and C pads up to a multiple of 16 in shared memory (33 to 48, 66 to 80).
-// A warp owns one output row: 2 m-tiles x 9 n-tiles, 72 sums a thread.
-// Channels-last puts the channel pairs that the fragments want into one
-// 32-bit word of x already, so the halo is staged a word at a time (K5, on
-// NCDHW, interleaves two channel planes); a position of the halo holds its 8
-// words in S words, with S = 12 at column stride 1 and 10 at stride 2, so
-// that the 8 positions of a fragment load fall on 8 distinct groups of 4
-// banks. The weights are repacked once per launch (pack_weights in
-// mma_bf16.cuh, shared with K5) into the order the CTAs stage them, and
-// staged as 16-byte copies.
-// Left for later: staging and products do not overlap inside a CTA (no
-// cp.async or TMA ring), wgmma, K padded to 16 channels, TCO = 72 wastes
-// 54% of the products at Co = 33, and a strided tile stages a halo four
-// times the size (one CTA per SM).
+// bf16: the wgmma implicit GEMM of conv_sm90.cuh (a staging ring, N tiles as
+// wide as Co, K in granules of 8 channels, so C = 33 pads to 40 and Co = 33
+// takes a 40-wide tile); this file gives it NDHWC's halo and store.
+// Channels-last puts a granule's 8 channels side by side in x already, so the
+// halo needs no transpose, and the plan picks one of three routes by C:
+// - C % 8 == 0 (d4's 648): one 16-byte cp.async per granule, zero-filled
+//   outside x, counted on the stage's barrier by cp.async.mbarrier.arrive;
+// - C even (66, 132: a position is 4-byte aligned, not 16): four 4-byte
+//   cp.asyncs per granule, likewise;
+// - C odd (33): the producer loads the granule's 8 channels in registers,
+//   PRODUCER_BATCH granules in flight at once, and stores 16 bytes.
+// The store: the block's tile is kept [position][channel] in shared memory
+// and written along Co, 16 bytes a store where Co and the tile's width are
+// multiples of 8, else 4 (C even) or 2.
 //
 // f32 (conv_cl_fma_kernel): the same sum as f32 FMAs, never TF32. A warp owns
 // 8 output channels and a lane one output column, so a thread holds 8 rows x
@@ -61,13 +49,13 @@
 
 #include <stddef.h>
 
-#include "mma_bf16.cuh"
+#include "conv_sm90.cuh"
 
 namespace {
 
-constexpr int TW = 32;   // output columns per CTA
-constexpr int RH = 8;    // output rows per CTA
-constexpr int TCO = 72;  // output channels per CTA
+constexpr int TW = 32;   // the f32 kernel: output columns per CTA
+constexpr int RH = 8;    // ... output rows per CTA
+constexpr int TCO = 72;  // ... output channels per CTA
 constexpr int RCO = 8;   // the f32 kernel: output channels per warp
 constexpr int FMA_WARPS = TCO / RCO;
 constexpr int FMA_THREADS = FMA_WARPS * 32;
@@ -205,205 +193,162 @@ cudaError_t launch_fma(const void* x, const void* w, void* out, int N, Geometry 
   return cudaGetLastError();
 }
 
-// ---- bf16: the tensor-core kernel ------------------------------------------------
+// ---- bf16: NDHWC's halo and store for the wgmma core ---------------------------------
 
-constexpr int MMA_WARPS = RH;   // one output row of the tile each
-constexpr int MMA_THREADS = MMA_WARPS * 32;
-constexpr int KC = MMA_KC;      // input channels per chunk: one k16 step per tap
-constexpr int KW2 = MMA_KW2;    // ... as 32-bit words of two bf16
-constexpr int NT = TCO / 8;     // n8 tiles of output channels per CTA
-constexpr int MT = TW / 16;     // m16 tiles of output columns per warp
-constexpr int STAGE_U = 8;      // halo words a thread loads before it stores any
-constexpr int POS_STEP = MMA_THREADS / KW2;  // halo positions staged per pass
-
-// Words per halo position: an odd multiple of 4 once multiplied by the column
-// stride, so that positions g * sw (g = 0..7) start 8 distinct groups of 4 banks.
-__host__ __device__ __forceinline__ int pos_words(int sw) { return sw == 1 ? 12 : 10; }
-
-__global__ void __launch_bounds__(MMA_THREADS, 2) conv_cl_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const unsigned* __restrict__ wp,
-    __nv_bfloat16* __restrict__ out, Geometry g) {
-  extern __shared__ __align__(16) unsigned smem_u[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int grp = lane >> 2;  // the fragment's row (A, C) or column (B)
-  const int tig = lane & 3;   // the fragment's pair of k (A, B) or of columns (C)
-  const int taps = g.kd * g.kh * g.kw;
-  const int S = pos_words(g.sw);
-  const int n_rows = g.kd * g.in_rows;      // (depth, row) rows of the halo
-  const int n_pos = n_rows * g.in_cols;
-  const int ws_words = taps * TCO * KW2;
-  unsigned* ws = smem_u;                    // [taps][TCO][KW2], swizzled
-  unsigned* xs = smem_u + ws_words;         // [n_pos][S]: words 0..7 used
-  int* row_off = reinterpret_cast<int*>(xs + (size_t)n_pos * S);  // [n_rows]
-
-  const Tile t = tile_of(g);
-  const __nv_bfloat16* xb = x + (size_t)t.n * g.D * g.H * g.W * g.C;
-  const int n_chunks = (g.C + KC - 1) / KC;
-  const uint4* wsrc = reinterpret_cast<const uint4*>(wp + (size_t)blockIdx.y * n_chunks * ws_words);
-  const bool even_c = (g.C & 1) == 0;
-
-  float acc[MT][NT][4];
+struct Ndhwc {
+  // Granule gr of halo position (dd, r, col): channels c0 + 8 gr .. + 7 of
+  // one (d, h, w), contiguous in x.
+  static __device__ __forceinline__ void stage_halo(const __nv_bfloat16* __restrict__ x,
+                                                    const sm90::Geom& g, const sm90::Tile& t,
+                                                    unsigned char* halo, int c0, int gpc, int ptid,
+                                                    uint32_t full) {
+    constexpr int U = sm90::PRODUCER_BATCH, P = sm90::STAGERS;
+    const unsigned short* xb =
+        reinterpret_cast<const unsigned short*>(x) + (size_t)t.b * g.D * g.H * g.W * g.C;
+    const int n_tasks = gpc * g.kd * g.in_rows * g.in_cols;
+    for (int task0 = ptid; task0 < n_tasks; task0 += U * P) {
+      unsigned short e[U][8];
+      int dst[U];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+      for (int u = 0; u < U; ++u) {
+        const int task = task0 + u * P;
+        dst[u] = -1;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+        for (int i = 0; i < 8; ++i) e[u][i] = 0;
+        if (task >= n_tasks) continue;
+        const int gr = task % gpc;
+        int rest = task / gpc;
+        const int col = rest % g.in_cols;
+        rest /= g.in_cols;
+        const int r = rest % g.in_rows, dd = rest / g.in_rows;
+        const int d = t.d0 + dd, h = t.h0 + r, w = t.w0 + col;
+        const int c = c0 + gr * 8;
+        const bool inside = d >= 0 && d < g.D && h >= 0 && h < g.H && w >= 0 && w < g.W;
+        const unsigned short* src = xb + (((size_t)d * g.H + h) * g.W + w) * g.C + c;
+        dst[u] = sm90::granule_offset(g, sm90::halo_pos(g, dd, r, col), gr);
+        if (g.route != sm90::ROUTE_REGS) {  // asynchronous copies, zero-filled outside x
+          const uint32_t sd = sm90::smem_addr(halo + dst[u]);
+          dst[u] = -1;
+          if (g.route == sm90::ROUTE_CP16 || !inside) {
+            sm90::cp_async16(sd, inside ? (const void*)src : (const void*)x, inside ? 16 : 0);
+          } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
-
-  // where each (depth, row) of the halo starts in x (column 0 of x, channel
-  // 0), or -1 outside x: the same for every chunk
-  for (int r = threadIdx.x; r < n_rows; r += MMA_THREADS) {
-    const int d = t.d_in0 + r / g.in_rows;
-    const int h = t.h_in0 + r % g.in_rows;
-    const bool inside = d >= 0 && d < g.D && h >= 0 && h < g.H;
-    row_off[r] = inside ? (int)(((size_t)d * g.H + h) * g.W * g.C) : -1;
-  }
-  __syncthreads();
-
-  // a thread stages word j (channels 2j, 2j+1 of the chunk) of every
-  // POS_STEP-th position: in_cols >= TW = POS_STEP, so a position's column
-  // wraps at most once per step
-  const int j = threadIdx.x % KW2;
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    const int c = chunk * KC + 2 * j;
-    {
-      int col = threadIdx.x / KW2, r = 0;
-      for (int p0 = threadIdx.x / KW2; p0 < n_pos; p0 += STAGE_U * POS_STEP) {
-        unsigned word[STAGE_U];
-#pragma unroll
-        for (int u = 0; u < STAGE_U; ++u) {
-          word[u] = 0u;
-          const int wi = t.w_in0 + col;
-          if (p0 + u * POS_STEP < n_pos && c < g.C && wi >= 0 && wi < g.W) {
-            const int off = row_off[r];
-            if (off >= 0) {
-              const __nv_bfloat16* src = xb + off + (size_t)wi * g.C + c;
-              if (even_c) {
-                word[u] = *reinterpret_cast<const unsigned*>(src);
-              } else {
-                word[u] = pack2(src[0], c + 1 < g.C ? src[1] : __float2bfloat16(0.f));
-              }
-            }
+            for (int i = 0; i < 4; ++i)
+              sm90::cp_async4(sd + 4 * i, src + 2 * i, c + 2 * i < g.C ? 4 : 0);
           }
-          col += POS_STEP;
-          if (col >= g.in_cols) {
-            col -= g.in_cols;
-            ++r;
-          }
+          continue;
         }
+        if (inside) {
 #pragma unroll
-        for (int u = 0; u < STAGE_U; ++u) {
-          const int p = p0 + u * POS_STEP;
-          if (p < n_pos) xs[p * S + j] = word[u];
+          for (int i = 0; i < 8; ++i)
+            if (c + i < g.C) e[u][i] = src[i];
         }
       }
-    }
-    // the chunk's weights, already in their shared-memory order: 16-byte copies
-    {
-      const uint4* src = wsrc + (size_t)chunk * (ws_words / 4);
-      uint4* dst = reinterpret_cast<uint4*>(ws);
-#pragma unroll 4
-      for (int i = threadIdx.x; i < ws_words / 4; i += MMA_THREADS) dst[i] = src[i];
-    }
-    __syncthreads();
-
-    const int swz = swizzle(grp);
-    for (int kdi = 0; kdi < g.kd; ++kdi) {
-      for (int khi = 0; khi < g.kh; ++khi) {
-        const int row = (kdi * g.in_rows + warp * g.sh + khi) * g.in_cols;
-        const unsigned* wtap = ws + ((kdi * g.kh + khi) * g.kw * TCO + grp) * KW2;
-        for (int kwi = 0; kwi < g.kw; ++kwi) {
-          unsigned a[MT][4];
 #pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            // rows grp and grp + 8 of the m-tile: output columns m*16 + grp (+8)
-            const unsigned* p = xs + (row + kwi + (m * 16 + grp) * g.sw) * S + tig;
-            a[m][0] = p[0];
-            a[m][1] = p[8 * g.sw * S];
-            a[m][2] = p[4];
-            a[m][3] = p[8 * g.sw * S + 4];
-          }
-          const unsigned* wrow = wtap + kwi * TCO * KW2;
+      for (int u = 0; u < U; ++u) {
+        if (dst[u] < 0) continue;
+        unsigned v[4];
 #pragma unroll
-          for (int n = 0; n < NT; ++n) {
-            const unsigned b0 = wrow[n * 8 * KW2 + (tig ^ swz)];
-            const unsigned b1 = wrow[n * 8 * KW2 + ((tig + 4) ^ swz)];
-#pragma unroll
-            for (int m = 0; m < MT; ++m) mma_bf16(acc[m][n], a[m], b0, b1);
-          }
-        }
+        for (int i = 0; i < 4; ++i) v[i] = (unsigned)e[u][2 * i] | ((unsigned)e[u][2 * i + 1] << 16);
+        *reinterpret_cast<uint4*>(halo + dst[u]) = make_uint4(v[0], v[1], v[2], v[3]);
       }
     }
-    __syncthreads();  // the next chunk overwrites xs and ws
+    if (g.route == sm90::ROUTE_REGS)
+      sm90::mbar_arrive(full);
+    else
+      sm90::cp_async_arrive(full);
   }
 
-  const int oh = t.oh0 + warp;
-  if (oh >= g.Ho) return;
-  __nv_bfloat16* dst_row = out + (((size_t)t.n * g.Do + t.od) * g.Ho + oh) * g.Wo * g.Co;
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int ow = t.ow0 + m * 16 + grp + 8 * half;
-      if (ow >= g.Wo) continue;
-      __nv_bfloat16* dst = dst_row + (size_t)ow * g.Co;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int co = t.co0 + n * 8 + 2 * tig + i;
-          if (co < g.Co) dst[co] = __float2bfloat16(acc[m][n][2 * half + i]);
-        }
-      }
+  // [position][channel], a row of n + 8 (16-byte rows, fewer bank conflicts)
+  static __device__ __forceinline__ int tile_index(int m, int co, int n) { return m * (n + 8) + co; }
+
+  // Runs along Co: out[n, od, oh, ow, co0 ..], V channels a store.
+  template <int V>
+  static __device__ __forceinline__ void store_runs(__nv_bfloat16* out, const sm90::Geom& g,
+                                                    const sm90::Tile& t,
+                                                    const __nv_bfloat16* tile, int tid) {
+    const int tw = min(g.tw, g.Wo - t.ow0), th = min(g.th, g.Ho - t.oh0);
+    const int n = min(g.n, g.Co - t.co0);
+    __nv_bfloat16* ob =
+        out + ((((size_t)t.b * g.Do + t.od) * g.Ho + t.oh0) * g.Wo + t.ow0) * g.Co + t.co0;
+    const int units = n / V, items = th * tw * units;
+    for (int it = tid; it < items; it += sm90::CONSUMER_WARPS * 32) {
+      const int u = it % units, rest = it / units;
+      const int c = rest % tw, r = rest / tw;
+      sm90::copy_bf16<V>(ob + ((size_t)r * g.Wo + c) * g.Co + u * V,
+                         tile + tile_index(r * g.tw + c, u * V, g.n));
     }
   }
-}
 
-cudaError_t launch_mma(const void* x, const void* w, void* out, void* scratch, int N,
-                       const Geometry& g, cudaStream_t stream) {
-  const int taps = g.kd * g.kh * g.kw;
-  const int n_rows = g.kd * g.in_rows;
-  const size_t bytes = ((size_t)taps * TCO * KW2 + (size_t)n_rows * g.in_cols * pos_words(g.sw) +
-                        n_rows) * sizeof(unsigned);
-  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
-  // w is (taps, C, Co)
-  cudaError_t err = pack_weights<TCO>(w, scratch, g.C, g.Co, taps, g.C * g.Co, g.Co, 1, stream);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(conv_cl_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(g.n_wt * g.n_ht * g.Do), (unsigned)((g.Co + TCO - 1) / TCO),
-                  (unsigned)N);
-  conv_cl_mma_kernel<<<grid, MMA_THREADS, bytes, stream>>>(
-      (const __nv_bfloat16*)x, (const unsigned*)scratch, (__nv_bfloat16*)out, g);
-  return cudaGetLastError();
-}
+  static __device__ __forceinline__ void store(__nv_bfloat16* out, const sm90::Geom& g,
+                                               const sm90::Tile& t, const __nv_bfloat16* tile,
+                                               int, int tid) {
+    const int n = min(g.n, g.Co - t.co0);
+    if (g.Co % 8 == 0 && n % 8 == 0)
+      store_runs<8>(out, g, t, tile, tid);
+    else if (g.Co % 2 == 0 && n % 2 == 0)
+      store_runs<2>(out, g, t, tile, tid);
+    else
+      store_runs<1>(out, g, t, tile, tid);
+  }
+};
 
 bool one_of(int v, int a, int b) { return v == a || v == b; }
 
+bool valid(int N, int D, int H, int W, int C, int Co, int kd, int kh, int kw, int sd, int sh,
+           int sw) {
+  // one batch element's offsets fit 32 bits where the f32 kernel keeps them
+  return N >= 1 && C >= 1 && D >= 1 && H >= 1 && W >= 1 && Co >= 1 && N <= 65535 &&
+         one_of(kd, 1, 3) && one_of(kh, 1, 3) && one_of(kw, 1, 3) && one_of(sd, 1, 2) &&
+         one_of(sh, 1, 2) && one_of(sw, 1, 2) && D >= sd && H >= sh && W >= sw &&
+         (size_t)D * H * W * C <= 0x7fffffffULL;
+}
+
 }  // namespace
 
-// Bytes of scratch that conv_cl_forward needs for bf16 inputs (the packed
-// weights); 0 for f32, -1 where they are too large.
-extern "C" int conv_cl_scratch_bytes(int C, int Co, int kd, int kh, int kw, int bf16) {
-  return packed_weight_bytes<TCO>(C, Co, kd * kh * kw, bf16);
+// The bf16 kernel's plan for this conv: out[14] = {th, tw, n, n_tiles,
+// granules, cs, stages, splits, route, chunks, ctas, smem, k_steps,
+// scratch} (conv_sm90_plan). Returns a cudaError_t (0 on success).
+extern "C" int conv_cl_plan(int N, int D, int H, int W, int C, int Co, int kd, int kh, int kw,
+                            int sd, int sh, int sw, int* out) {
+  sm90::Geom g;
+  if (!valid(N, D, H, W, C, Co, kd, kh, kw, sd, sh, sw) ||
+      !sm90::conv_sm90_plan(sm90::NDHWC, N, C, D, H, W, Co, kd, kh, kw, sd, sh, sw, g, out))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// The bf16 weights w (kd, kh, kw, C, Co) packed as the kernel stages them,
+// into wp (the plan's scratch bytes): what conv_cl_forward does first.
+extern "C" int conv_cl_pack_weights(const void* w, void* wp, int N, int D, int H, int W, int C,
+                                    int Co, int kd, int kh, int kw, int sd, int sh, int sw,
+                                    void* stream) {
+  sm90::Geom g;
+  int plan[sm90::PLAN_INTS];
+  if (!valid(N, D, H, W, C, Co, kd, kh, kw, sd, sh, sw) ||
+      !sm90::conv_sm90_plan(sm90::NDHWC, N, C, D, H, W, Co, kd, kh, kw, sd, sh, sw, g, plan))
+    return (int)cudaErrorInvalidValue;
+  return (int)sm90::pack_weights(w, wp, g, C * Co, Co, 1, (cudaStream_t)stream);
 }
 
 // x (N, D, H, W, C), w (kd, kh, kw, C, Co), out (N, D / sd, H / sh, W / sw,
 // Co): all bf16 (bf16 != 0) or all f32, contiguous, on the device of
-// `stream`; scratch: conv_cl_scratch_bytes bytes on that device, 16-byte
+// `stream`; scratch: the plan's scratch bytes on that device, 16-byte
 // aligned (unused for f32). Returns the cudaError_t of the launch.
 extern "C" int conv_cl_forward(const void* x, const void* w, void* out, void* scratch, int N,
                                int D, int H, int W, int C, int Co, int kd, int kh, int kw,
                                int sd, int sh, int sw, int bf16, void* stream) {
-  if (N < 1 || C < 1 || D < 1 || H < 1 || W < 1 || Co < 1 || N > 65535 ||
-      !one_of(kd, 1, 3) || !one_of(kh, 1, 3) || !one_of(kw, 1, 3) ||
-      !one_of(sd, 1, 2) || !one_of(sh, 1, 2) || !one_of(sw, 1, 2) ||
-      D < sd || H < sh || W < sw)
-    return (int)cudaErrorInvalidValue;
-  // one batch element's offsets fit the halo table's 32 bits
-  if ((size_t)D * H * W * C > 0x7fffffffULL) return (int)cudaErrorInvalidValue;
+  if (!valid(N, D, H, W, C, Co, kd, kh, kw, sd, sh, sw)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    sm90::Geom g;
+    int plan[sm90::PLAN_INTS];
+    if (scratch == nullptr ||
+        !sm90::conv_sm90_plan(sm90::NDHWC, N, C, D, H, W, Co, kd, kh, kw, sd, sh, sw, g, plan))
+      return (int)cudaErrorInvalidValue;
+    return (int)sm90::conv_sm90_launch<Ndhwc>(x, w, out, scratch, g, plan[11], C * Co, Co, 1,
+                                              s);
+  }
   Geometry g;
   g.C = C, g.D = D, g.H = H, g.W = W, g.Co = Co;
   g.kd = kd, g.kh = kh, g.kw = kw, g.sd = sd, g.sh = sh, g.sw = sw;
@@ -415,10 +360,5 @@ extern "C" int conv_cl_forward(const void* x, const void* w, void* out, void* sc
   g.chunk = 0;
   if ((long long)g.n_wt * g.n_ht * g.Do > 0x7fffffffLL || (g.Co + TCO - 1) / TCO > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    return (int)launch_mma(x, w, out, scratch, N, g, s);
-  }
   return (int)launch_fma(x, w, out, N, g, s);
 }

@@ -47,6 +47,7 @@ class Library(NamedTuple):
 
 _MMA = ("mma_bf16.cuh",)
 _SELECT = ("knn_select.cuh", *_MMA)
+_SM90 = ("conv_sm90.cuh",)
 LIBRARIES: dict[str, Library] = {
     "knn_max": Library(_SELECT, {
         "knn_max_forward": [_PTR] * 5 + [_INT] * 6 + [_PTR],
@@ -60,13 +61,15 @@ LIBRARIES: dict[str, Library] = {
         "knn_max_backward": [_PTR] * 6 + [_INT] * 8 + [_PTR],
         "knn_max_bwd_plan": [_INT] * 6 + [_PTR],
     }),
-    "conv3d": Library(_MMA, {
+    "conv3d": Library(_SM90, {
         "conv3d_forward": [_PTR] * 4 + [_INT] * 13 + [_PTR],
-        "conv3d_scratch_bytes": [_INT] * 6,
+        "conv3d_plan": [_INT] * 12 + [_PTR],
+        "conv3d_pack_weights": [_PTR] * 2 + [_INT] * 12 + [_PTR],
     }),
-    "conv_cl": Library(_MMA, {
+    "conv_cl": Library(_SM90, {
         "conv_cl_forward": [_PTR] * 4 + [_INT] * 13 + [_PTR],
-        "conv_cl_scratch_bytes": [_INT] * 6,
+        "conv_cl_plan": [_INT] * 12 + [_PTR],
+        "conv_cl_pack_weights": [_PTR] * 2 + [_INT] * 12 + [_PTR],
     }),
     "conv_probe": Library((), {
         "conv_probe_forward": [_PTR] * 3 + [_INT] * 5 + [_PTR],

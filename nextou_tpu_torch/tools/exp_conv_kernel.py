@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``tools/exp_conv_kernel.py``, whose two
 Pallas kernels (``pallas_conv``: an im2col slab per grid step and one MXU
 matmul with K = taps x C, strides in {1, 2}; ``csub_conv``: the same conv at
 stride 1 with the channels on the sublanes) are one CUDA kernel here,
-``csrc/conv_cl.cu``. The public functions keep the JAX tool's layouts:
+``csrc/conv_cl.cu`` (for bf16 the wgmma core ``csrc/conv_sm90.cuh`` that K5
+shares). The public functions keep the JAX tool's layouts:
 ``x (N, D, H, W, C)``, ``w (kd, kh, kw, C, Co)``, symmetric ``(k - 1) // 2``
 padding, and T3's output extents ``D // sd``, ``H // sh``, ``W // sw`` (for
 an odd extent under a stride one output fewer than ``F.conv3d`` gives).
@@ -30,7 +31,8 @@ Modes, each on the card only (exit 1 without one):
   one rounding of the output (2^-7 of the value + 1e-3).
 - ``check3``: the same for ``csub_conv`` at the JAX tool's two cases.
 - ``bench``: ``pallas_conv`` at ``CASES`` in bf16 beside the library conv
-  and the plain version, by CUDA events.
+  and the plain version, by CUDA events, and the bf16 kernel's plan
+  (``kernels.conv.conv_sm90_plan``, the same core as K5's).
 - ``bench3``: ``csub_conv`` at the JAX tool's ``bench3`` cases.
 
 Every line of times carries the card's name and power limit. Not carried
@@ -51,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from nextou_tpu_torch.kernels.build import check_tensors, library, ptr
+from nextou_tpu_torch.kernels.conv import describe_plan, library_plan
 from nextou_tpu_torch.tools.timing import card, cuda_ms, require_card
 
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -132,10 +135,10 @@ def conv_cl_cuda(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int]) -> tor
     out = torch.empty((N, *out_spatial, Co), dtype=x.dtype, device=dev)
     lib = library("conv_cl")
     bf16 = int(x.dtype == torch.bfloat16)
-    scratch_bytes = lib.conv_cl_scratch_bytes(C, Co, *kernel, bf16)
-    if scratch_bytes < 0:
-        raise ValueError(f"conv_cl_cuda: weights {tuple(w.shape)} are too large")
-    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev) if scratch_bytes else None
+    scratch = None
+    if bf16:  # the bf16 kernel reads the weights packed; it packs them itself
+        plan = library_plan("conv_cl", (N, *x.shape[1:4], C, Co, *kernel, *stride))
+        scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         rc = lib.conv_cl_forward(
             ptr(x), ptr(w), ptr(out), ptr(scratch), N, *x.shape[1:4], C, Co, *kernel, *stride,
@@ -277,9 +280,12 @@ def bench(dev, three: bool) -> None:
     cases = [(n, s, co, k, (1, 1, 1)) for n, s, co, k in BENCH3_CASES] if three else CASES
     for name, shape, co, kernel, stride in cases:
         r = time_case(entry, shape, co, kernel, stride, dev)
+        plan = describe_plan(library_plan("conv_cl", (shape[0], *shape[1:4], shape[4], co, *kernel,
+                                                      *stride)))
         print(f"{name} {shape}->{co} k{kernel} s{stride} bf16: {entry.__name__} {r['ms']:8.3f} ms "
               f"({r['flops'] / r['ms'] / 1e9:6.1f} TFLOP/s) | F.conv3d channels_last "
-              f"{r['library_ms']:8.3f} ms | plain {r['plain_ms']:8.3f} ms | {name_line}", flush=True)
+              f"{r['library_ms']:8.3f} ms | plain {r['plain_ms']:8.3f} ms | {plan} | {name_line}",
+              flush=True)
 
 
 def main(argv=None) -> int:

@@ -10,7 +10,8 @@ kernel became ``kernels/conv.py``; here the tool drives the kernel itself.
   pattern, odd channel counts, ragged tiles. Fails on the first case
   outside its tolerance.
 - ``bench``: K5 and ``F.conv3d`` by CUDA events at the five flagship shapes
-  the network hands to the kernel, bf16, batch 2 and 4.
+  the network hands to the kernel, bf16, batch 2 and 4, each beside the bf16
+  kernel's plan (``kernels.conv.conv_sm90_plan``).
 - ``benchwrap``: the same inside ``ConvNormAct`` (conv, bias, BatchNorm in
   eval mode, LeakyReLU), which is what the network swaps.
 
@@ -24,7 +25,7 @@ import sys
 import torch
 import torch.nn.functional as F
 
-from nextou_tpu_torch.kernels.conv import conv3d_cuda, conv3d_reference
+from nextou_tpu_torch.kernels.conv import conv3d_cuda, conv3d_reference, describe_plan, library_plan
 from nextou_tpu_torch.tools.timing import card, cuda_ms, require_card
 
 # B, (D, H, W), C, Co, kernel, stride
@@ -111,9 +112,11 @@ def bench(dev, wrap: bool) -> None:
             else:
                 t_k5 = cuda_ms(lambda: conv3d_cuda(x, w, stride))
                 t_lib = cuda_ms(lambda: library_conv(x, w, stride))
+            plan = describe_plan(library_plan("conv3d", (B, C, *spatial, Co, 3, 3, 3, *stride)))
             print(f"{name} batch {B} bf16{' in ConvNormAct' if wrap else ''}: "
                   f"K5 {t_k5:8.3f} ms ({flops / t_k5 / 1e9:6.1f} TFLOP/s) | library "
-                  f"{t_lib:8.3f} ms ({flops / t_lib / 1e9:6.1f} TFLOP/s) | {name_line}", flush=True)
+                  f"{t_lib:8.3f} ms ({flops / t_lib / 1e9:6.1f} TFLOP/s) | {plan} | {name_line}",
+                  flush=True)
 
 
 def main(argv=None) -> int:

@@ -23,7 +23,7 @@ from nextou_tpu_torch.tools.timing import card, require_card
 BATCH, WARMUP, TIMED, PROFILED, TOP = 4, 2, 5, 3, 20
 # kernel name fragment -> group; the first match wins
 GROUPS = (
-    ("knn_max_kernel", "K1 knn_max"), ("conv3d_mma_kernel", "K5 conv3d"),
+    ("knn_max_kernel", "K1 knn_max"), ("conv_sm90_kernel", "K5 conv3d"),
     ("conv3d_fma_kernel", "K5 conv3d"), ("pack_weights_kernel", "K5 conv3d"),
     ("conv", "conv (cuDNN)"), ("xmma", "conv (cuDNN)"), ("Nhwc", "conv (cuDNN)"),
     ("nhwc", "conv (cuDNN)"), ("nchw", "conv (cuDNN)"), ("sgemm", "conv (cuDNN)"),

@@ -1,5 +1,7 @@
 """The hand-written kernels K1-K5, T3 and the probes' (``nextou_tpu_torch/csrc/``)
-against their plain PyTorch versions on a CUDA card. Imports no jax, so that it runs on a machine with the
+against their plain PyTorch versions on a CUDA card; for the wgmma conv core
+of K5 and T3 also its weight packing against the Python mirror (bit for bit)
+and a one-hot (1, 1, 1) conv (exact). Imports no jax, so that it runs on a machine with the
 card and without jax:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -426,6 +428,133 @@ def test_k5_matches_plain_on_gpu(dtype):
         conv3d(x, w.bfloat16(), (1, 1, 1))  # one dtype for both
     with pytest.raises(ValueError):
         conv3d(x, w, (3, 1, 1))
+
+
+# --- the wgmma conv core that K5 and T3 share (csrc/conv_sm90.cuh) ----------------------
+
+# (B, C, (D, H, W), Co, kernel, stride): Co = 33, 66, 132 and 324 (two N
+# tiles), odd C, odd extents, Wo = 12, both strides; K5's routes "vec" (W % 8
+# == 0) and "regs", T3's "regs" (odd C), "cp4" (even C) and "cp16" (C % 8 == 0)
+SM90_CARD_CASES = [
+    (2, 33, (5, 20, 48), 33, (3, 3, 3), (1, 1, 1)),
+    (1, 66, (6, 18, 40), 66, (3, 3, 3), (1, 2, 2)),
+    (1, 66, (7, 15, 45), 132, (3, 3, 3), (2, 2, 2)),
+    (1, 648, (4, 14, 12), 324, (3, 3, 3), (1, 1, 1)),
+    (2, 40, (3, 9, 24), 324, (3, 3, 3), (2, 2, 2)),
+    (1, 33, (1, 16, 40), 33, (1, 3, 3), (1, 1, 1)),
+    # a ring of two stages only with chunks of 8 at C <= 32 (32 -> 64, 24 ->
+    # 132, 19 -> 11) or a block of 2 rows (66 -> 168 at column stride 2)
+    (1, 32, (4, 16, 64), 64, (3, 3, 3), (2, 2, 2)),
+    (1, 24, (3, 8, 40), 132, (3, 3, 3), (1, 1, 1)),
+    (1, 66, (4, 8, 64), 168, (3, 3, 3), (2, 2, 2)),
+    (1, 19, (6, 10, 66), 11, (3, 3, 3), (2, 2, 2)),
+]
+
+
+def _sm90_operands(B, C, spatial, Co, kernel, seed):
+    """Seeded bf16 ``x (B, C, D, H, W)``, ``w (Co, C, *kernel)`` on the card,
+    and their channels-last forms for T3."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, C, *spatial, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(Co, C, *kernel, generator=gen, device="cuda") * 0.05).bfloat16()
+    return x, w, x.permute(0, 2, 3, 4, 1).contiguous(), w.permute(2, 3, 4, 1, 0).contiguous()
+
+
+@pytest.mark.gpu
+def test_conv_sm90_weight_packing_is_the_python_mirror_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("the conv kernels are CUDA code: they need a CUDA card")
+    from nextou_tpu_torch.kernels.build import library
+    from nextou_tpu_torch.kernels.conv import conv_sm90_plan, library_plan, pack_weights_sm90
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for i, (B, C, spatial, Co, kernel, stride) in enumerate(SM90_CARD_CASES):
+        x, w, xl, wl = _sm90_operands(B, C, spatial, Co, kernel, i)
+        taps = int(np.prod(kernel))
+        for name, layout, args, py_args, wt, wd in (
+            ("conv3d", "ncdhw", (B, C, *spatial, Co, *kernel, *stride),
+             (B, C, spatial, Co, kernel, stride), w.reshape(Co, C, taps).permute(2, 1, 0), w),
+            ("conv_cl", "ndhwc", (B, *spatial, C, Co, *kernel, *stride),
+             (B, C, spatial, Co, kernel, stride), wl.reshape(taps, C, Co), wl),
+        ):
+            plan = library_plan(name, args)
+            wp = torch.empty(plan["scratch"] // 2, dtype=torch.bfloat16, device="cuda")
+            rc = getattr(library(name), f"{name}_pack_weights")(wd.data_ptr(), wp.data_ptr(), *args,
+                                                               stream)
+            torch.cuda.synchronize()
+            assert rc == 0
+            want = pack_weights_sm90(wt, conv_sm90_plan(layout, *py_args)).reshape(-1)
+            assert torch.equal(wp.view(torch.int16), want.view(torch.int16)), (name, i)
+
+
+@pytest.mark.gpu
+def test_conv_sm90_plans_are_the_python_mirror_on_gpu():
+    """The library's plan (conv3d_plan, conv_cl_plan) equals
+    kernels/conv.py::conv_sm90_plan over a seeded sweep of shapes that the
+    wrappers accept (x under 2^31 elements), and every shape has one."""
+    if not torch.cuda.is_available():
+        pytest.skip("the conv kernels are CUDA code: they need a CUDA card")
+    from nextou_tpu_torch.kernels.conv import PLAN_KEYS, conv_sm90_plan, library_plan
+
+    rng = np.random.default_rng(5)
+    for _ in range(1000):
+        B, C, Co = int(rng.integers(1, 5)), int(rng.integers(1, 700)), int(rng.integers(1, 400))
+        if rng.random() < 0.5:
+            C = int(rng.integers(1, 40))
+        sp = tuple(int(v) for v in rng.integers(2, 97, 3))
+        kernel = tuple(int(v) for v in rng.choice((1, 3), 3))
+        stride = tuple(int(v) for v in rng.choice((1, 2), 3))
+        for name, layout, args in (("conv3d", "ncdhw", (B, C, *sp, Co, *kernel, *stride)),
+                                   ("conv_cl", "ndhwc", (B, *sp, C, Co, *kernel, *stride))):
+            got = library_plan(name, args)
+            want = conv_sm90_plan(layout, B, C, sp, Co, kernel, stride)
+            assert all(got[k] == want[k] for k in PLAN_KEYS), (name, args, got, want)
+
+
+@pytest.mark.gpu
+def test_conv_sm90_one_hot_is_exact_on_gpu():
+    """A (1, 1, 1) kernel is a plain GEMM: with output channel o copying input
+    channel perm[o], every output is an input bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("the conv kernels are CUDA code: they need a CUDA card")
+    from nextou_tpu_torch.kernels.conv import conv3d
+    from nextou_tpu_torch.tools import exp_conv_kernel as t3
+
+    for C, Co in ((16, 16), (33, 33), (66, 66), (24, 132), (40, 324)):
+        x = torch.randn(1, C, 2, 8, 64, device="cuda").bfloat16()
+        perm = torch.arange(Co, device="cuda") * 7 % C
+        w = torch.zeros(Co, C, 1, 1, 1, device="cuda", dtype=torch.bfloat16)
+        w[torch.arange(Co, device="cuda"), perm] = 1
+        assert torch.equal(conv3d(x, w, (1, 1, 1)), x[:, perm]), (C, Co)
+        xl, wl = x.permute(0, 2, 3, 4, 1).contiguous(), w.permute(2, 3, 4, 1, 0).contiguous()
+        assert torch.equal(t3.conv_cl_cuda(xl, wl, (1, 1, 1)), xl[..., perm]), (C, Co)
+
+
+@pytest.mark.gpu
+def test_conv_sm90_widths_routes_and_strides_on_gpu():
+    """K5 and T3 against their plain versions within one rounding of the
+    output (2^-7 |y| + 1e-3, as chip_smoke.py's phase 9), at every width,
+    route and stride of SM90_CARD_CASES."""
+    if not torch.cuda.is_available():
+        pytest.skip("the conv kernels are CUDA code: they need a CUDA card")
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda, conv3d_reference, library_plan
+    from nextou_tpu_torch.tools import exp_conv_kernel as t3
+
+    routes = {"conv3d": set(), "conv_cl": set()}
+    for i, (B, C, spatial, Co, kernel, stride) in enumerate(SM90_CARD_CASES):
+        x, w, xl, wl = _sm90_operands(B, C, spatial, Co, kernel, i)
+        for name, got, want, args in (
+            ("conv3d", conv3d_cuda(x, w, stride), conv3d_reference(x, w, stride),
+             (B, C, *spatial, Co, *kernel, *stride)),
+            ("conv_cl", t3.conv_cl_cuda(xl, wl, stride), t3.conv_cl_reference(xl, wl, stride),
+             (B, *spatial, C, Co, *kernel, *stride)),
+        ):
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and got.dtype == torch.bfloat16
+            diff = (got.float() - want.float()).abs()
+            assert bool((diff <= 2.0 ** -7 * want.float().abs() + 1e-3).all()), (name, i)
+            routes[name].add(library_plan(name, args)["route"])
+    assert routes == {"conv3d": {0, 3}, "conv_cl": {0, 1, 2}}
 
 
 @pytest.mark.gpu
