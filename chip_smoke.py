@@ -109,7 +109,39 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     ``training_log.txt`` and ``validation/summary.json`` written; seconds
     per epoch and per iteration, the share of the train loop spent waiting
     in ``next(train_it)``, the host's cores and loader threads, peak device
-    memory; then the host loader alone, seconds per augmented batch.
+    memory; then the host loader alone, seconds per augmented batch;
+15. raw serving (after phase 10, on its checkpoint): a synthetic abdominal
+    CT, int16 HU, (x, y, z) 512x512x148 at (0.68, 0.68, 3.0) mm, zero outside
+    a field-of-view cylinder of radius 230, written as ``ct_000_0000.nii.gz``
+    by the port's ``data/io.py``, goes through ``predict.main --raw`` with
+    a model folder whose ``plans.json`` builds the flagship at spacing [3.0,
+    0.76, 0.76] with ``transpose_forward`` [2, 1, 0] and CT normalization
+    (8-way TTA, tile batch 2). The grid (148x412x412, 48 tiles, 96
+    forwards) is reckoned and asserted; K1 exactly 14 launches per forward,
+    device accumulation, the NIfTI written at the input's shape and spacing,
+    int16, labels in [0, 14), background outside the field of view. Seconds
+    by stage, timed around ``infer/raw.py``'s own functions inside that run
+    (read, crop + normalize, resample to spacing, sliding window on the card
+    to a synchronize, resample back, argmax + revert, write), the total and
+    the peak device and host memory;
+16. host accumulation: (a) phase 5's first case through
+    ``sliding_window_predict`` (host accumulators) and the device predictor,
+    8-way TTA: at most 0.1% of the probabilities outside atol 2e-3 / rtol
+    1e-3 (phase 6's rule), argmax agreement 99.9%; (b) a preprocessed
+    1x272x512x512 case, whose accumulators (4.56 GB) exceed the 4 GiB
+    budget, through ``predict.main --disable_tta``: the host path printed,
+    K1 exactly 14 launches per forward (160 tiles, 80 forwards), labels in
+    range; seconds, the share of them outside the forwards, peak device and
+    host memory;
+17. fold ensembles: two seed-distinct flagship checkpoints under
+    ``fold_0/`` and ``fold_1/`` serve phase 5's two cases through
+    ``predict.main -f 0 1 --save-probabilities``, once per fold, and with
+    ``-f 0 -pp postprocessing.json`` (largest component kept for every
+    label): the ensemble's probabilities the folds' mean within float16
+    rounding (atol 1e-3); ``ensemble.main`` over the single folds the same
+    seg but where the two best probabilities lie within 1e-3; ``-pp`` equal
+    bit for bit to ``postprocess apply`` on fold 0's seg; K1 exactly 14
+    launches per forward.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record, each entry with the path its numbers were taken
@@ -1501,6 +1533,383 @@ def trainer_phase(dev, tmp: str) -> dict:
             "loader_s_per_batch": per_batch}
 
 
+# --- raw serving, host accumulation, fold ensembles (phases 15-17) ---------------------
+
+# the raw CT of phase 15, as stored: (x, y, z) voxels and mm, int16 HU; zero
+# outside a field-of-view cylinder
+RAW_SHAPE, RAW_SPACING, FOV_RADIUS = (512, 512, 148), (0.68, 0.68, 3.0), 230
+RAW_TARGET_SPACING = [3.0, 0.76, 0.76]
+CT_PROPERTIES = {"mean": 80.0, "std": 160.0, "median": 60.0, "min": -1000.0, "max": 1500.0,
+                 "percentile_00_5": -150.0, "percentile_99_5": 1000.0}
+# phase 16 (b): one preprocessed case whose accumulators exceed the budget
+HOST_SHAPE = (272, 512, 512)
+
+
+def synthetic_ct(seed: int) -> np.ndarray:
+    """An abdominal CT-like volume (x, y, z) int16: air, a body ellipse of
+    soft tissue, seeded organ-like ellipsoids and a bone column, with noise;
+    zero outside the field-of-view cylinder (radius ``FOV_RADIUS``)."""
+    rng = np.random.default_rng(seed)
+    x, y, z = RAW_SHAPE
+    xx = np.arange(x, dtype=np.float32)[:, None] - (x - 1) / 2
+    yy = np.arange(y, dtype=np.float32)[None, :] - (y - 1) / 2
+    body = (xx / 215) ** 2 + (yy / 165) ** 2 <= 1
+    vol = np.where(body, np.float32(40), np.float32(-1000))[..., None] + rng.normal(
+        0, 20, RAW_SHAPE).astype(np.float32)
+    zz = np.arange(z, dtype=np.float32)
+    blobs = [(rng.uniform(-110, 110), rng.uniform(-80, 80), rng.uniform(30, z - 30),
+              rng.uniform(30, 70), rng.uniform(25, 55), rng.uniform(10, 35),
+              rng.uniform(60, 220)) for _ in range(6)]
+    blobs.append((0.0, 110.0, z / 2, 22.0, 22.0, 4 * z, 700.0))  # the spine
+    for cx, cy, cz, rx, ry, rz, hu in blobs:
+        inside = (((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2)[..., None] + (
+            ((zz - cz) / rz) ** 2)[None, None] <= 1
+        inside &= body[..., None]
+        vol[inside] = hu + rng.normal(0, 15, int(inside.sum())).astype(np.float32)
+    vol[~(xx ** 2 + yy ** 2 <= FOV_RADIUS ** 2)] = 0
+    return vol.astype(np.int16)
+
+
+class HostPeak:
+    """Peak resident memory of this process while the ``with`` block runs: a
+    thread samples ``/proc/self/statm`` every 10 ms. Where that file is
+    missing, the peak is ``ru_maxrss``, the process's own since it began,
+    and ``words`` says so."""
+
+    def __init__(self):
+        import threading
+
+        self.bytes, self._stop = 0, threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self.words = "peak host memory"
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _sample(self):
+        while not self._stop.wait(0.01):
+            self.bytes = max(self.bytes, self._rss())
+
+    def __enter__(self):
+        try:
+            self.bytes = self._rss()
+            self._thread.start()
+        except OSError:
+            self._thread = None
+        return self
+
+    def __exit__(self, *exc):
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join()
+            self.bytes = max(self.bytes, self._rss())
+        else:
+            import resource
+
+            self.bytes = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+            self.words = "peak host memory (the process's, since it began)"
+
+
+def run_main(fn, argv) -> str:
+    """``fn(argv)`` with its standard output captured, echoed and returned."""
+    import contextlib
+    import io as _io
+
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    out = buf.getvalue()
+    sys.stdout.write("".join(f"  | {line}\n" for line in out.splitlines()))
+    return out
+
+
+def raw_serving_phase(dev, tmp: str, spec) -> dict:
+    """Phase 15: one synthetic 512x512x148 CT through ``predict.main --raw``
+    with the flagship (seed-0 weights of phase 5), stage by stage."""
+    import shutil
+
+    from nextou_tpu_torch import predict
+    from nextou_tpu_torch.data import io as nio
+    from nextou_tpu_torch.data.preprocessing import crop_to_nonzero, shape_for_spacing
+    from nextou_tpu_torch.infer import raw as raw_mod
+    from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda
+    from nextou_tpu_torch.kernels.knn import knn_max_cuda
+
+    config = "3d_fullres_nextou"
+    raw_dir, model_dir, out_dir = (os.path.join(tmp, d) for d in ("raw", "raw_model", "raw_out"))
+    os.makedirs(raw_dir)
+    write_dataset(model_dir, spec, config, 0, None, seed=0)
+    with open(os.path.join(model_dir, "nnUNetPlans.json")) as f:
+        plans = json.load(f)
+    plans["configurations"][config]["spacing"] = RAW_TARGET_SPACING
+    plans["transpose_forward"] = plans["transpose_backward"] = [2, 1, 0]
+    plans["foreground_intensity_properties_per_channel"] = {"0": CT_PROPERTIES}
+    with open(os.path.join(model_dir, "plans.json"), "w") as f:
+        json.dump(plans, f)
+    shutil.copy(os.path.join(tmp, "model", "checkpoint_final.pth"), model_dir)
+    t0 = time.time()
+    ct = synthetic_ct(seed=8)
+    nio.write_nifti(os.path.join(raw_dir, "ct_000_0000.nii.gz"), ct, spacing=RAW_SPACING)
+    print(f"synthetic CT {RAW_SHAPE} int16, spacing {RAW_SPACING} mm, HU in [{ct.min()}, "
+          f"{ct.max()}], written as NIfTI (gzip) in {time.time() - t0:.1f} s")
+
+    # the grid the plans ask for, and the tiles and forwards it takes
+    cropped = crop_to_nonzero(np.transpose(ct, (2, 1, 0))[None])[0].shape[1:]
+    grid = shape_for_spacing(cropped, RAW_SPACING[::-1], RAW_TARGET_SPACING)
+    tiles = math.prod(len(s) for s in compute_sliding_window_steps(grid, spec.patch_size))
+    forwards = math.ceil(tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
+    print(f"cropped to {cropped}, resampled to {grid}: {tiles} tiles, {forwards} forwards of "
+          f"batch {TILE_BATCH * MIRRORS_PER_FORWARD}")
+    assert abs(grid[0] - 148) <= 1 and all(abs(g - 412) <= 3 for g in grid[1:]), grid
+    assert (tiles, forwards) == (48, 96), (tiles, forwards)
+    del ct
+
+    # each stage timed around raw.py's own functions, inside predict.main
+    stages = dict.fromkeys(("read", "crop + normalize", "resample to spacing",
+                            "sliding window (card)", "resample back", "argmax + revert",
+                            "write"), 0.0)
+    saved = {name: getattr(raw_mod, name) for name in (
+        "read_image", "crop_to_nonzero", "normalize", "resample_data_or_seg_to_shape",
+        "write_nifti", "predict_raw_case")}
+    resamples = []
+
+    def timed(stage, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            stages[stage() if callable(stage) else stage] += time.perf_counter() - t
+            return out
+        return run
+
+    def resample_stage():  # predict_raw_case resamples to the spacing, then back
+        resamples.append(None)
+        return "resample to spacing" if len(resamples) % 2 else "resample back"
+
+    def case(predictor, *args, **kwargs):
+        def card_predictor(x):
+            out = predictor(x)
+            torch.cuda.synchronize()
+            return out
+
+        before = dict(stages)
+        t = time.perf_counter()
+        out = saved["predict_raw_case"](timed("sliding window (card)", card_predictor),
+                                        *args, **kwargs)
+        inner = sum(stages[s] - before[s] for s in stages if s not in ("read", "write"))
+        stages["argmax + revert"] += time.perf_counter() - t - inner
+        return out
+
+    raw_mod.read_image = timed("read", saved["read_image"])
+    raw_mod.crop_to_nonzero = timed("crop + normalize", saved["crop_to_nonzero"])
+    raw_mod.normalize = timed("crop + normalize", saved["normalize"])
+    raw_mod.resample_data_or_seg_to_shape = timed(resample_stage,
+                                                  saved["resample_data_or_seg_to_shape"])
+    raw_mod.write_nifti = timed("write", saved["write_nifti"])
+    raw_mod.predict_raw_case = case
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    knn_max_cuda.launches = conv3d_cuda.launches = 0
+    t0 = time.time()
+    try:
+        with HostPeak() as host_peak:
+            log = run_main(predict.main, [model_dir, raw_dir, config, "--raw", "-o", out_dir,
+                                          "--tile-batch", str(TILE_BATCH), "--device", str(dev)])
+    finally:
+        for name, fn in saved.items():
+            setattr(raw_mod, name, fn)
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    launches, peak = knn_max_cuda.launches, torch.cuda.max_memory_allocated(dev)
+    seg, seg_spacing = nio.read_nifti(os.path.join(out_dir, "ct_000.nii.gz"))
+    labels = np.unique(seg)
+    print(f"predict.main --raw: 1 CT {RAW_SHAPE}, {total:.2f} s incl. model build and load; "
+          f"K1 launches {launches}; peak device memory {peak / 2**30:.2f} GiB, {host_peak.words} "
+          f"{host_peak.bytes / 2**30:.2f} GiB; seg {seg.shape} {seg.dtype}, spacing "
+          f"{seg_spacing}, labels {labels.tolist()}")
+    print("seconds by stage: " + ", ".join(f"{s} {t:.3f}" for s, t in stages.items())
+          + f"; sum {sum(stages.values()):.3f}")
+    if launches != 14 * forwards or conv3d_cuda.launches:
+        raise AssertionError(f"K1 launched {launches} times for {forwards} forwards, "
+                             f"K5 {conv3d_cuda.launches}")
+    if "(device accumulation)" not in log:
+        raise AssertionError("the raw CT did not take the device-accumulation path")
+    assert seg.shape == RAW_SHAPE and seg.dtype == np.int16, (seg.shape, seg.dtype)
+    assert seg_spacing == tuple(float(np.float32(s)) for s in RAW_SPACING), seg_spacing
+    assert labels.min() >= 0 and labels.max() < spec.num_classes
+    assert (seg[0] == 0).all() and (seg[:, 0] == 0).all()  # outside the field of view
+    return {"launches": launches, "s": total, "stages": stages, "peak_bytes": peak,
+            "host_peak_bytes": host_peak.bytes}
+
+
+def host_accumulation_phase(dev, tmp: str, spec) -> dict:
+    """Phase 16: (a) host against device accumulation on phase 5's case;
+    (b) a preprocessed 1x272x512x512 case over the budget through
+    ``predict.main``."""
+    from nextou_tpu_torch import predict
+    from nextou_tpu_torch.infer.sliding_window import (
+        compute_sliding_window_steps,
+        make_tile_predictor,
+        sliding_window_predict,
+    )
+    from nextou_tpu_torch.kernels.knn import knn_max_cuda
+
+    config = "3d_fullres_nextou"
+    data_dir, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+    checkpoint = os.path.join(model_dir, "checkpoint_final.pth")
+    plans, _, infer_spec = predict.load_dataset(data_dir, config)
+    model = predict.load_model(infer_spec, checkpoint, dev)
+    data = next(d for _, d in predict.iter_cases(data_dir, plans, config, ["case_000"]))
+    seconds = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want = predict.build_predictor(model, (0, 1, 2), tile_batch=TILE_BATCH)(data)
+    seconds["device"] = time.time() - t0
+    t0 = time.time()
+    got = sliding_window_predict(make_tile_predictor(model, (0, 1, 2)), data, spec.patch_size,
+                                 spec.num_classes, device=dev, tile_batch=TILE_BATCH)
+    seconds["host"] = time.time() - t0
+    off = np.abs(got - want) > 2e-3 + 1e-3 * np.abs(want)
+    agree = float(np.mean(np.argmax(got, -1) == np.argmax(want, -1)))
+    print(f"host against device accumulation, 1 volume {data.shape[:-1]}, 8-way TTA: max|diff| "
+          f"{np.abs(got - want).max():.3g}, {off.mean():.2e} of values outside atol 2e-3/rtol "
+          f"1e-3, argmax agreement {agree:.6f}; {seconds['host']:.3f} s on the host path, "
+          f"{seconds['device']:.3f} s on the device path")
+    if off.mean() > 1e-3 or agree < 0.999:
+        raise AssertionError("host accumulation disagrees with device accumulation")
+    del model, got, want
+
+    big_dir, out_dir = os.path.join(tmp, "big"), os.path.join(tmp, "big_out")
+    write_dataset(big_dir, spec, config, 1, HOST_SHAPE, seed=9)
+    vox = math.prod(HOST_SHAPE)
+    acc_bytes = vox * (spec.num_classes + 2) * 4
+    tiles = math.prod(len(s) for s in compute_sliding_window_steps(HOST_SHAPE, spec.patch_size))
+    forwards = math.ceil(tiles / TILE_BATCH)
+    print(f"1 case {HOST_SHAPE}: {vox / 1e6:.1f} M voxels, accumulators {acc_bytes / 1e9:.2f} GB "
+          f"against a budget of {predict.ACC_BUDGET_BYTES / 1e9:.2f} GB; {tiles} tiles, "
+          f"{forwards} forwards of batch {TILE_BATCH} without TTA")
+    assert acc_bytes > predict.ACC_BUDGET_BYTES and (tiles, forwards) == (160, 80)
+
+    # the card's share: each tile batch's forwards, timed to a synchronize
+    card_s = [0.0]
+    make = predict.make_tile_predictor
+
+    def timed_tile_predictor(*args, **kwargs):
+        tile_pred = make(*args, **kwargs)
+
+        def run(tiles):
+            t = time.perf_counter()
+            out = tile_pred(tiles)
+            torch.cuda.synchronize()
+            card_s[0] += time.perf_counter() - t
+            return out
+        return run
+
+    predict.make_tile_predictor = timed_tile_predictor
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    knn_max_cuda.launches = 0
+    t0 = time.time()
+    try:
+        with HostPeak() as host_peak:
+            log = run_main(predict.main, [model_dir, big_dir, config, "-o", out_dir,
+                                          "--disable_tta", "--tile-batch", str(TILE_BATCH),
+                                          "--device", str(dev)])
+    finally:
+        predict.make_tile_predictor = make
+    total = time.time() - t0
+    launches, peak = knn_max_cuda.launches, torch.cuda.max_memory_allocated(dev)
+    with np.load(os.path.join(out_dir, "case_000.npz")) as z:
+        seg = z["seg"]
+    print(f"predict.main over the budget: {total:.2f} s incl. model build and load and the "
+          f"case's load, {card_s[0]:.2f} s of it in the forwards (host share "
+          f"{1 - card_s[0] / total:.3f}); K1 launches {launches}; peak device memory "
+          f"{peak / 2**30:.2f} GiB, {host_peak.words} {host_peak.bytes / 2**30:.2f} GiB; seg "
+          f"{seg.shape} {seg.dtype}, labels {np.unique(seg).tolist()}")
+    if "(host accumulation)" not in log:
+        raise AssertionError("the case over the budget did not take the host path")
+    if launches != 14 * forwards:
+        raise AssertionError(f"K1 launched {launches} times for {forwards} forwards")
+    assert seg.shape == HOST_SHAPE and seg.max() < spec.num_classes
+    return {"launches": launches, "s": total, "card_s": card_s[0], "peak_bytes": peak,
+            "host_peak_bytes": host_peak.bytes, "s_device_path": seconds["device"],
+            "s_host_path": seconds["host"]}
+
+
+def fold_ensemble_phase(dev, tmp: str, spec) -> dict:
+    """Phase 17: two folds' checkpoints, their ensemble with saved
+    probabilities, the ensemble CLI and postprocessing, on phase 5's cases."""
+    from nextou_tpu_torch import ensemble, postprocess, predict
+    from nextou_tpu_torch.kernels.knn import knn_max_cuda
+    from nextou_tpu_torch.models import NexToU
+    from nextou_tpu_torch.utils import init_weights
+
+    config = "3d_fullres_nextou"
+    data_dir, folds = os.path.join(tmp, "data"), os.path.join(tmp, "folds")
+    for fold in (0, 1):
+        os.makedirs(os.path.join(folds, f"fold_{fold}"))
+        model = init_weights(NexToU(spec, device=dev), seed=fold)
+        torch.save({"network_weights": model.state_dict()},
+                   os.path.join(folds, f"fold_{fold}", "checkpoint_final.pth"))
+    del model
+    pp_file = os.path.join(tmp, "postprocessing.json")
+    with open(pp_file, "w") as f:
+        json.dump({"remove_all_but_largest_component": {
+            str(label): True for label in range(1, spec.num_classes)}}, f)
+    out = {name: os.path.join(tmp, f"ens_{name}") for name in (
+        "f01", "f0", "f1", "pp", "cli", "applied")}
+    base = [folds, data_dir, config, "--save-probabilities", "--tile-batch", str(TILE_BATCH),
+            "--device", str(dev)]
+    knn_max_cuda.launches = 0
+    t0 = time.time()
+    seconds = {}
+    for name, extra in (("f01", ["-f", "0", "1"]), ("f0", ["-f", "0"]), ("f1", ["-f", "1"]),
+                        ("pp", ["-f", "0", "-pp", pp_file])):
+        t = time.time()
+        log = run_main(predict.main, base + extra + ["-o", out[name]])
+        seconds[name] = time.time() - t
+        assert log.count("(device accumulation)") == 2, log
+    launches = knn_max_cuda.launches
+    forwards = 2 * 2 * (8 // MIRRORS_PER_FORWARD) * 5  # 2 cases x 2 tile batches, 5 folds' runs
+    t = time.time()
+    run_main(ensemble.main, [out["f0"], out["f1"], "-o", out["cli"]])
+    run_main(postprocess.main, ["apply", out["f0"], "-o", out["applied"], "-pp", pp_file])
+    seconds["ensemble + apply"] = time.time() - t
+    print(f"fold ensemble, saved probabilities, ensemble and postprocessing CLIs: "
+          f"{time.time() - t0:.2f} s (" + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"); K1 launches {launches}")
+    if launches != 14 * forwards:
+        raise AssertionError(f"K1 launched {launches} times for {forwards} forwards")
+
+    def load(name, cid, key="seg"):
+        with np.load(os.path.join(out[name], f"{cid}.npz")) as z:
+            return z[key]
+
+    for cid in ("case_000", "case_001"):
+        p0, p1, p01 = (load(n, cid, "probabilities").astype(np.float32) for n in ("f0", "f1", "f01"))
+        err = float(np.abs(p01 - (p0 + p1) / 2).max())
+        seg, cli = load("f01", cid), load("cli", cid)
+        top2 = np.sort(p01, -1)[..., -2:]
+        off = seg != cli
+        gap = float((top2[off, 1] - top2[off, 0]).max()) if off.any() else 0.0
+        applied, pp = load("applied", cid), load("pp", cid)
+        moved = float(np.mean(applied != load("f0", cid)))
+        print(f"{cid}: ensemble probabilities against the mean of the folds' max|diff| {err:.2e}; "
+              f"ensemble CLI seg against predict's {off.mean():.2e} of voxels off, their top-2 "
+              f"gap at most {gap:.2e}; -pp against postprocess apply equal "
+              f"{np.array_equal(pp, applied)} (dtypes {pp.dtype}, {applied.dtype}), "
+              f"{moved:.4f} of voxels changed by the postprocessing")
+        if err > 1e-3:
+            raise AssertionError(f"{cid}: the fold ensemble is not the folds' mean")
+        if gap > 1e-3:
+            raise AssertionError(f"{cid}: the ensemble CLI differs beyond a float16 near tie")
+        if not (np.array_equal(pp, applied) and pp.dtype == applied.dtype):
+            raise AssertionError(f"{cid}: predict -pp differs from postprocess apply")
+    return {"launches": launches, "s": time.time() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -1534,6 +1943,12 @@ def main() -> int:
         sl = slice_phase(dev, tmp, flagship_3d_spec(num_classes=14), (64, 280, 240))
         torch.cuda.empty_cache()
         sl5 = conv_serving_phase(dev, tmp, flagship_3d_spec(num_classes=14), (64, 280, 240))
+        torch.cuda.empty_cache()
+        raw = raw_serving_phase(dev, tmp, flagship_3d_spec(num_classes=14))
+        torch.cuda.empty_cache()
+        host = host_accumulation_phase(dev, tmp, flagship_3d_spec(num_classes=14))
+        torch.cuda.empty_cache()
+        ens = fold_ensemble_phase(dev, tmp, flagship_3d_spec(num_classes=14))
     small_reference_phase(dev)
     torch.cuda.empty_cache()
     tr = train_phase(dev, flagship_3d_spec(num_classes=14, deep_supervision=True))
@@ -1551,13 +1966,16 @@ def main() -> int:
     records["conv_cl"], conv_cl_launches = conv_cl_phase(dev)
 
     # each kernel's numbers belong to the path that runs it ("path"): K1 to
-    # predict.main on the flagship, K3 and K4 to the flagship's train steps,
-    # K2 to the small dilated network's (no flagship graph is dilated), K5 to
+    # predict.main on the flagship (phases 5, 15, 16 b, 17), K3 and K4 to the
+    # flagship's train steps, K2 to the small dilated network's (no flagship graph is dilated), K5 to
     # the flagship with conv_kernel="1" (its launches: one served volume and
     # two train steps), the probes' kernels to their tools
     sources = {
-        "knn_max": ("knn_max.cu", "nextou_tpu/kernels/knn.py:40", sl["launches"] + trained["k1"],
-                    "flagship predict; the trainer's eval steps and validation"),
+        "knn_max": ("knn_max.cu", "nextou_tpu/kernels/knn.py:40",
+                    sl["launches"] + raw["launches"] + host["launches"] + ens["launches"]
+                    + trained["k1"],
+                    "flagship predict: preprocessed, raw, over the budget, fold ensembles; "
+                    "the trainer's eval steps and validation"),
         "knn_indices": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:184", k2_launches,
                         "small dilated network, train steps"),
         "knn_max_idx": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:278", tr["k3"] + trained["k3"],

@@ -7,9 +7,13 @@ every module here is tested against.
 - ``kernels``  hand-written CUDA kernels (``csrc/``) and their plain versions
 - ``nn``       conv blocks, graph convs, graphers
 - ``models``   the plans -> spec program and the NexToU network
-- ``infer``    Gaussian sliding-window inference with mirror TTA
+- ``infer``    Gaussian sliding-window inference with mirror TTA (device or
+               host accumulation), raw-volume serving, evaluation
+- ``data``     NIfTI I/O, preprocessing and resampling; preprocessed cases,
+               sampling, augmentation and the loader
 - ``compat``   weights from ``nextou_tpu`` variables
-- ``predict``  the prediction CLI
+- ``predict``  the prediction CLI (preprocessed or raw cases, fold ensembles);
+  ``ensemble``, ``postprocess``, ``evaluate_folder`` and ``run_training``
 """
 
 __version__ = "0.1.0"

@@ -1,24 +1,33 @@
-"""CLI + API: predict preprocessed cases with a NexToU checkpoint.
+"""CLI + API: predict preprocessed or raw cases with NexToU checkpoints.
 
-Counterpart of ``nextou_tpu/predict.py`` for preprocessed cases: the plans
-configuration gives the network (built the way the trainers build it), the
-trainer name gives the TTA mirror axes, and each case goes through the
-device-resident Gaussian sliding window; ``{case}.npz`` gets ``seg``.
+Counterpart of ``nextou_tpu/predict.py``: the plans configuration gives the
+network (built the way the trainers build it), the trainer name gives the
+TTA mirror axes, and each case goes through the Gaussian sliding window,
+its accumulators on the device while they fit ``ACC_BUDGET_BYTES`` and in
+host memory above it (every forward runs on the device either way). ``-f``
+averages several folds' probabilities. A preprocessed case's ``{case}.npz``
+gets ``seg`` (and with ``--save-probabilities`` its ``probabilities``,
+float16); with ``--raw`` a folder of raw images (``{case}_0000.nii.gz``) goes
+through crop, normalization and resampling to the plans' spacing and back
+(``infer/raw.py``), and ``{case}.nii.gz`` is written at the input's geometry.
 
     python -m nextou_tpu_torch.predict MODEL_FOLDER DATASET_FOLDER CONFIGURATION \\
-        -o OUTPUT [-tr nnUNetTrainer_NexToU] [-chk checkpoint_final.pth]
+        -o OUTPUT [--raw] [-f 0 1 ...] [-tr nnUNetTrainer_NexToU]
+        [-chk checkpoint_final.pth] [--save-probabilities] [-pp postprocessing.json]
         [--conv-kernel {0,1,s1,s2}] [--device cpu]
 
-The checkpoint is a torch file holding ``{'network_weights': state_dict}``
-under upstream NexToU's parameter names, the layout of upstream nnU-Net
-checkpoints; their DDP/compile prefixes and alias keys are stripped
+With ``--raw`` the plans (``plans.json``) and ``dataset.json`` are read from
+the model folder, where the trainer writes them. The checkpoint is a torch
+file holding ``{'network_weights': state_dict}`` under upstream NexToU's
+parameter names, the layout of upstream nnU-Net checkpoints; their
+DDP/compile prefixes and alias keys are stripped
 (:func:`~nextou_tpu_torch.compat.weights.extract_network_weights`). Computes
 in bf16 on a CUDA device, which is where it runs unless ``--device cpu`` asks
 for the CPU (f32): without a card and without that option it fails.
 
-Not ported yet: ``--raw`` NIfTI input, fold ensembles, cascades,
-postprocessing, ``--save-probabilities``, and loading a ``nextou_tpu``
-(flax msgpack) checkpoint.
+Not ported yet: cascades (``-prev``), ``--all-devices``, the networks other
+than NexToU that plans can name, and loading a ``nextou_tpu`` (flax msgpack)
+checkpoint.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
@@ -33,10 +43,17 @@ import torch
 
 from nextou_tpu_torch.compat.weights import extract_network_weights
 from nextou_tpu_torch.data.dataset import PreprocessedDataset
-from nextou_tpu_torch.infer.sliding_window import make_device_sliding_predictor
+from nextou_tpu_torch.infer.raw import predict_raw_folder
+from nextou_tpu_torch.infer.sliding_window import (
+    make_device_sliding_predictor,
+    make_tile_predictor,
+    sliding_window_predict,
+)
 from nextou_tpu_torch.models.nextou import NexToU
 from nextou_tpu_torch.models.spec import ModelSpec, build_model_spec
 from nextou_tpu_torch.nn.conv_blocks import CONV_KERNEL_MODES
+from nextou_tpu_torch.paths import resolve_preprocessed, resolve_raw
+from nextou_tpu_torch.postprocess import apply_postprocessing
 from nextou_tpu_torch.plans.loader import PlansManager, load_dataset_json
 
 # the seven public NexToU trainer names; the _NoMirroring ones predict
@@ -50,8 +67,12 @@ TRAINERS = (
     "nnUNetTrainer_NexToU_BTI_RAVIR",
     "nnUNetTrainer_NexToU_BTI_ICA_NoMirroring",
 )
-# device-resident accumulation budget: f32 accumulators + the volume
+# device-resident accumulation budget: f32 accumulators + the volume; a
+# volume above it is accumulated in host memory
 ACC_BUDGET_BYTES = 4 << 30
+# the accumulation path a predictor took on its last call (``predict.path``)
+DEVICE_ACCUMULATION = "device accumulation"
+HOST_ACCUMULATION = "host accumulation"
 
 
 def mirror_axes_for(trainer: str, spatial_dims: int) -> tuple[int, ...] | None:
@@ -126,72 +147,204 @@ def build_predictor(
     activation: str = "softmax",
 ) -> Callable[[np.ndarray], np.ndarray]:
     """``data (*sp, C_in) -> probs (*sp, num_classes) f32``, or with
-    ``output='seg'`` the argmax ``(*sp)`` uint8, computed on the model's
-    device. Raises for volumes whose accumulators exceed the device budget."""
+    ``output='seg'`` (label mode) the argmax ``(*sp)`` as uint8 (int16 above
+    255 classes), every forward on the model's device.
+
+    The accumulators stay on the device while ``vox * (num_classes + 1 +
+    C_in) * 4`` bytes fit ``ACC_BUDGET_BYTES``, and live in host memory above
+    it (``nextou_tpu/predict.py::build_predictor``); ``predict.path`` names
+    the path its last call took. A 2d network over a 3d case predicts slice
+    by slice along the leading axis."""
     spec = model.spec
     device = next(model.parameters()).device
+    patch, ncls = tuple(spec.patch_size), spec.num_classes
+    tile_pred = make_tile_predictor(model, mirror_axes, activation)
     device_pred = make_device_sliding_predictor(
-        model, mirror_axes, spec.patch_size, spec.num_classes, device=device,
+        model, mirror_axes, patch, ncls, device=device,
         tile_batch=tile_batch, activation=activation, output=output,
         step_fraction=step_size,
     )
+    seg_dtype = np.uint8 if ncls <= 255 else np.int16
 
     def predict(data: np.ndarray) -> np.ndarray:
-        acc_bytes = int(np.prod(data.shape[:-1])) * (spec.num_classes + 1 + data.shape[-1]) * 4
-        if acc_bytes > ACC_BUDGET_BYTES:
-            raise NotImplementedError(
-                f"volume {data.shape} needs {acc_bytes} B of device accumulators "
-                f"(> {ACC_BUDGET_BYTES}); the host-accumulation fallback is not ported yet"
-            )
-        return device_pred(data).cpu().numpy()
+        if data.ndim - 1 == len(patch) + 1:
+            # a 2d configuration on a volumetric case: slice by slice along
+            # the leading axis (nnU-Net's 2d inference over 3d data)
+            return np.stack([predict(data[z]) for z in range(data.shape[0])])
+        acc_bytes = int(np.prod(data.shape[:-1])) * (ncls + 1 + data.shape[-1]) * 4
+        if acc_bytes <= ACC_BUDGET_BYTES:
+            predict.path = DEVICE_ACCUMULATION
+            return device_pred(data).cpu().numpy()
+        predict.path = HOST_ACCUMULATION
+        probs = sliding_window_predict(
+            tile_pred, data, patch, ncls, device=device, step_fraction=step_size,
+            tile_batch=tile_batch,
+        )
+        return np.argmax(probs, axis=-1).astype(seg_dtype) if output == "seg" else probs
 
+    predict.path = None
     return predict
+
+
+def build_fold_ensemble_predictor(
+    models: Sequence[NexToU],
+    mirror_axes: Sequence[int] | None,
+    *,
+    tile_batch: int = 2,
+    output: str = "probs",
+    step_size: float = 0.5,
+    activation: str = "softmax",
+) -> Callable[[np.ndarray], np.ndarray]:
+    """Average the sliding-window probabilities of several folds' models,
+    nnU-Net's ``-f 0 1 2 3 4`` cross-validation ensemble (softmax averaged
+    over folds before the argmax). ``output='seg'`` applies to a single fold
+    only: an ensemble needs the probabilities."""
+    if len(models) > 1:
+        output = "probs"
+    predictors = [
+        build_predictor(m, mirror_axes, tile_batch=tile_batch, output=output,
+                        step_size=step_size, activation=activation)
+        for m in models
+    ]
+    if len(predictors) == 1:
+        return predictors[0]
+
+    def predict(data: np.ndarray) -> np.ndarray:
+        acc = None
+        for p in predictors:
+            probs = p(data)
+            acc = probs if acc is None else acc + probs
+        predict.path = predictors[0].path
+        return acc / len(predictors)
+
+    predict.path = None
+    return predict
+
+
+def _fold_model_folders(model_folder: str, folds) -> list[str]:
+    """Per-fold checkpoint folders: ``..._fold_N`` siblings (the trainer's
+    layout) or ``fold_N/`` subfolders (nnU-Net's layout)."""
+    base = model_folder.rstrip("/")
+    m = re.search(r"fold_(\d+|all)$", base)
+    out = []
+    for f in folds:
+        if m is not None:
+            out.append(base[: m.start()] + f"fold_{f}")
+        elif os.path.isdir(os.path.join(base, f"fold_{f}")):
+            out.append(os.path.join(base, f"fold_{f}"))
+        else:
+            raise SystemExit(
+                f"cannot resolve fold {f}: {model_folder} neither ends in "
+                "fold_N nor contains fold_N subfolders"
+            )
+    for p in out:
+        if not os.path.isdir(p):
+            raise SystemExit(f"fold folder does not exist: {p}")
+    return out
+
+
+def load_postprocessing(path: str) -> dict:
+    """The operations of a ``postprocessing.json`` (``postprocess
+    determine``), or of an ``inference_information.json`` that carries them
+    under ``'postprocessing'``."""
+    with open(path) as f:
+        pp = json.load(f)
+    pp = pp.get("postprocessing", pp)
+    if "remove_all_but_largest_component" not in pp:
+        raise SystemExit(f"{path} carries no postprocessing operations")
+    return pp
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("model_folder", help="folder holding the checkpoint")
     ap.add_argument("dataset_folder", help="preprocessed dataset folder "
-                    "(nnUNetPlans.json, dataset.json, {case}.npz)")
+                    "(nnUNetPlans.json, dataset.json, {case}.npz), or with --raw a folder "
+                    "of raw images ({case}_{0000..}.nii.gz)")
     ap.add_argument("configuration")
+    ap.add_argument("--raw", action="store_true",
+                    help="raw images: preprocess, predict, resample back and write NIfTI "
+                    "segmentations at the input's geometry (plans.json and dataset.json "
+                    "are read from the model folder)")
     ap.add_argument("-tr", "--trainer", default="nnUNetTrainer_NexToU")
+    ap.add_argument("-f", "--folds", nargs="*", default=None,
+                    help="average these folds' probabilities; the model folder ends in "
+                    "fold_N (siblings) or holds fold_N subfolders")
     ap.add_argument("-chk", default="checkpoint_final.pth")
     ap.add_argument("-o", "--output", required=True)
     ap.add_argument("--cases", nargs="*", default=None)
     ap.add_argument("--tile-batch", type=int, default=2)
     ap.add_argument("-step_size", "--step-size", type=float, default=0.5)
     ap.add_argument("--disable-tta", "--disable_tta", action="store_true")
+    ap.add_argument("-pp", "--postprocessing", default=None,
+                    help="apply the operations of a postprocessing.json (postprocess "
+                    "determine) to every written segmentation")
+    ap.add_argument("--save-probabilities", action="store_true",
+                    help="also store the probabilities (float16) in the output npz, "
+                    "for the ensemble CLI")
     ap.add_argument("--conv-kernel", choices=CONV_KERNEL_MODES, default="0",
                     help="hand the convs of the hand-written conv kernel's region to it: "
                     "all (1), the stride-1 ones (s1) or the strided ones (s2)")
     ap.add_argument("--device", default="cuda",
                     help="the card by default; 'cpu' computes on the CPU in f32")
     args = ap.parse_args(argv)
+    if args.raw and args.save_probabilities:
+        raise SystemExit(
+            "--save-probabilities is not supported with --raw (raw mode writes NIfTI "
+            "segmentations at the original geometry; ensembling inputs need predictions "
+            "on the preprocessed grid: predict the preprocessed folder instead)")
+    postprocess = None
+    if args.postprocessing is not None:
+        pp = load_postprocessing(args.postprocessing)
+
+        def postprocess(seg):
+            return apply_postprocessing(seg, pp)
 
     device = torch.device(args.device)
-    plans, dataset_json, spec = load_dataset(args.dataset_folder, args.configuration)
+    if args.raw:
+        dataset_folder = resolve_raw(args.dataset_folder)
+        plans = PlansManager(os.path.join(args.model_folder, "plans.json"))
+        dataset_json = load_dataset_json(args.model_folder)
+        spec = build_spec(plans, args.configuration, dataset_json)
+    else:
+        dataset_folder = resolve_preprocessed(args.dataset_folder)
+        plans, dataset_json, spec = load_dataset(dataset_folder, args.configuration)
     labels = plans.get_label_manager(dataset_json)
     mirror = mirror_axes_for(args.trainer, spec.spatial_dims)
-    model = load_model(spec, os.path.join(args.model_folder, args.chk), device,
-                       args.conv_kernel)
+    folders = _fold_model_folders(args.model_folder, args.folds) if args.folds else [
+        args.model_folder]
+    models = [load_model(spec, os.path.join(f, args.chk), device, args.conv_kernel)
+              for f in folders]
     regions = labels.has_regions
-    predictor = build_predictor(
-        model, None if args.disable_tta else mirror,
+    # label mode, one fold, no saved probabilities: only the seg leaves the device
+    want_seg = not (args.raw or args.save_probabilities or regions or len(models) > 1)
+    predictor = build_fold_ensemble_predictor(
+        models, None if args.disable_tta else mirror,
         tile_batch=args.tile_batch, step_size=args.step_size,
-        output="probs" if regions else "seg",
+        output="seg" if want_seg else "probs",
         activation="sigmoid" if regions else "softmax",
     )
+    if args.raw:
+        predict_raw_folder(
+            predictor, dataset_folder, args.output, plans,
+            plans.get_configuration(args.configuration), dataset_json,
+            cases=args.cases, postprocess=postprocess,
+        )
+        return
 
     os.makedirs(args.output, exist_ok=True)
     with open(os.path.join(args.output, "dataset.json"), "w") as f:
-        json.dump(dataset_json, f)  # label semantics for evaluation
-    for cid, data in iter_cases(args.dataset_folder, plans, args.configuration, args.cases):
-        if data.ndim - 1 != spec.spatial_dims:
-            raise NotImplementedError("2d configurations over 3d cases are not ported yet")
+        json.dump(dataset_json, f)  # label semantics for the ensemble and evaluation
+    for cid, data in iter_cases(dataset_folder, plans, args.configuration, args.cases):
         out = predictor(data)
-        seg = labels.convert_probabilities_to_segmentation(out) if regions else out
-        np.savez_compressed(os.path.join(args.output, f"{cid}.npz"), seg=seg)
-        print(f"predicted {cid}: {seg.shape}")
+        seg = out if want_seg else labels.convert_probabilities_to_segmentation(out)
+        if postprocess is not None:
+            seg = postprocess(seg)
+        payload = {"seg": seg}
+        if args.save_probabilities:
+            payload["probabilities"] = out.astype(np.float16)
+        np.savez_compressed(os.path.join(args.output, f"{cid}.npz"), **payload)
+        print(f"predicted {cid}: {seg.shape} ({predictor.path})")
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 against their plain PyTorch versions on a CUDA card; for the wgmma conv core
 of K5 and T3 also its weight packing against the Python mirror (bit for bit)
 and a one-hot (1, 1, 1) conv (exact). Imports no jax, so that it runs on a machine with the
-card and without jax:
+card and without jax. Also holds the predictor's host-accumulation path
+against its device path on the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
@@ -604,3 +605,39 @@ def test_conv_cl_matches_plain_on_gpu(dtype):
         t3.conv_cl_cuda(x, w.float() if dtype == torch.bfloat16 else w.bfloat16(), (1, 1, 1))
     with pytest.raises(ValueError):
         t3.csub_conv(x, w, (2, 1, 1))
+
+
+# --- the predictor's two accumulation paths ---------------------------------------------
+
+
+@pytest.mark.gpu
+def test_host_accumulation_matches_the_device_path_on_gpu(monkeypatch):
+    """A small network (bf16 on the card, 8-way TTA, 2 x 2 tiles) predicted
+    with its accumulators on the card and, above a patched budget, in host
+    memory: every forward on the card in both (the same K1 launches), the
+    probabilities within atol 1e-5 (the same forwards, f32 sums of the same
+    terms on the card and on the host), the seg equal on 99.9% of voxels."""
+    if not torch.cuda.is_available():
+        pytest.skip("the predictor's forwards run K1, CUDA code: needs a CUDA card")
+    from nextou_tpu_torch import predict
+    from nextou_tpu_torch.models import NexToU
+    from nextou_tpu_torch.models.presets import small_3d_spec
+    from nextou_tpu_torch.utils import init_weights
+
+    dev = torch.device("cuda")
+    spec = small_3d_spec(deep_supervision=False)
+    model = init_weights(NexToU(spec, dtype=torch.bfloat16, device=dev), seed=6).eval()
+    data = np.random.default_rng(6).standard_normal((16, 120, 100, 1)).astype(np.float32)
+    out = {}
+    for budget in (predict.ACC_BUDGET_BYTES, 1 << 20):
+        monkeypatch.setattr(predict, "ACC_BUDGET_BYTES", budget)
+        pred = predict.build_predictor(model, (0, 1, 2), tile_batch=2)
+        before = port_knn.knn_max_cuda.launches
+        probs = pred(data)
+        out[pred.path] = probs, port_knn.knn_max_cuda.launches - before
+    (dev_p, dev_k1), (host_p, host_k1) = (out[predict.DEVICE_ACCUMULATION],
+                                          out[predict.HOST_ACCUMULATION])
+    assert dev_k1 == host_k1 == 14 * 2 * 4  # 14 graphers, 2 tile batches, 4 mirror pairs
+    assert host_p.shape == dev_p.shape == (*data.shape[:-1], spec.num_classes)
+    np.testing.assert_allclose(host_p, dev_p, atol=1e-5, rtol=0)
+    assert np.mean(np.argmax(host_p, -1) == np.argmax(dev_p, -1)) >= 0.999

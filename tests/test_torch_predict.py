@@ -182,7 +182,9 @@ def test_port_imports_neither_jax_nor_flax():
         "assert len(names) > 30, names\n"
         "new = ['kernels.build', 'kernels.conv', 'tools.exp_conv_v2', 'tools.exp_conv_probe', 'tools.exp_knn_dissect',\n"
         "       'tools.exp_conv_kernel', 'native', 'data.augment', 'data.sampler', 'data.loader',\n"
-        "       'infer.evaluate', 'train.checkpoint', 'train.trainer', 'train.trainers', 'run_training']\n"
+        "       'infer.evaluate', 'train.checkpoint', 'train.trainer', 'train.trainers', 'run_training',\n"
+        "       'data.io', 'data.preprocessing', 'data.resampling', 'paths', 'infer.raw',\n"
+        "       'evaluate_folder', 'postprocess', 'ensemble']\n"
         "assert all('nextou_tpu_torch.' + n in names for n in new), names\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'nextou_tpu')))"
     )
@@ -191,15 +193,26 @@ def test_port_imports_neither_jax_nor_flax():
     assert out.stdout.strip() == "[]"
 
 
-def test_predictor_budget_and_trainer_names():
-    from nextou_tpu_torch.predict import ACC_BUDGET_BYTES, build_predictor, mirror_axes_for
+def test_predictor_budget_and_trainer_names(monkeypatch):
+    """A volume whose accumulators fit ``ACC_BUDGET_BYTES`` accumulates on the
+    device, one byte over it on the host (it no longer raises), with the same
+    result; the trainer names give the mirror axes."""
+    from nextou_tpu_torch import predict
+    from nextou_tpu_torch.predict import build_predictor, mirror_axes_for
 
     assert mirror_axes_for("nnUNetTrainer_NexToU_BTI_Synapse", 3) == (0, 1, 2)
     assert mirror_axes_for("nnUNetTrainer_NexToU_TI_NoMirroring", 3) is None
     with pytest.raises(ValueError):
         mirror_axes_for("nnUNetTrainer", 3)
     spec = presets.small_3d_spec(deep_supervision=False)
-    predict = build_predictor(NexToU(spec).eval(), None)
-    side = int(round((ACC_BUDGET_BYTES / (4 * (spec.num_classes + 2))) ** (1 / 3))) + 8
-    with pytest.raises(NotImplementedError):
-        predict(np.broadcast_to(np.float32(0), (side, side, side, 1)))
+    pred = build_predictor(init_weights(NexToU(spec), seed=1).eval(), None, output="seg")
+    data = np.random.default_rng(1).standard_normal((*spec.patch_size, 1)).astype(np.float32)
+    acc_bytes = int(np.prod(spec.patch_size)) * (spec.num_classes + 2) * 4
+    segs = {}
+    for budget, path in ((acc_bytes, predict.DEVICE_ACCUMULATION),
+                         (acc_bytes - 1, predict.HOST_ACCUMULATION)):
+        monkeypatch.setattr(predict, "ACC_BUDGET_BYTES", budget)
+        segs[path] = pred(data)
+        assert pred.path == path
+    assert segs[predict.HOST_ACCUMULATION].dtype == np.uint8
+    np.testing.assert_array_equal(*segs.values())
