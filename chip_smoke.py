@@ -134,14 +134,43 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     range; seconds, the share of them outside the forwards, peak device and
     host memory;
 17. fold ensembles: two seed-distinct flagship checkpoints under
-    ``fold_0/`` and ``fold_1/`` serve phase 5's two cases through
+    ``fold_0/`` and ``fold_1/`` serve phase 5's first case through
     ``predict.main -f 0 1 --save-probabilities``, once per fold, and with
     ``-f 0 -pp postprocessing.json`` (largest component kept for every
     label): the ensemble's probabilities the folds' mean within float16
     rounding (atol 1e-3); ``ensemble.main`` over the single folds the same
     seg but where the two best probabilities lie within 1e-3; ``-pp`` equal
     bit for bit to ``postprocess apply`` on fold 0's seg; K1 exactly 14
-    launches per forward.
+    launches per forward;
+18. the networks the plans can name, at the planner's widths for a
+    BTCV-sized fingerprint (``PLAN_BASE`` and below): (a) the 3d_lowres
+    PlainConvUNet (96x160x160, 32 ... 320, 14 classes, seed-0 weights)
+    serves two seeded 1x112x192x192 volumes through ``predict.main -tr
+    nnUNetTrainer`` (8-way TTA) with ``--conv-kernel`` 0 and 1: K5 exactly 5
+    launches per forward with 1 (e0a on the one input channel, e0b, e1a,
+    d0a, d0b) and none with 0, labels in range, seconds per volume both
+    ways; K5 held against its plain version at those five shapes (phase
+    9's rule); (b) the 3d_fullres ResidualEncoderUNet (56x192x160, blocks
+    1/3/4/6/6/6, one conv per decoder stage) through ``nnUNetTrainer`` with
+    ``conv_kernel="1"``: a batch-2 forward and 3 train steps in bf16, losses
+    finite, every parameter moved (phase 7's rule), K5 once per forward
+    (its stage-1 conv1, also held against its plain version), seconds and
+    peak device memory; (c) the plain Grapher over the flagship's
+    bottleneck map (2 x 4x7x6 x 324, k 32, the position bias), f32, card
+    against CPU: at most 0.1% of values outside atol 2e-3 / rtol 1e-3, K1
+    launched once;
+19. the cascade: three seeded labelled 1x96x320x288 cases on the cascade
+    stage's grid and their 3d_lowres copies (resampled by the plans'
+    spacings with the port's resampler); ``run_training -tr nnUNetTrainer
+    3d_lowres`` (1 epoch of 4 iterations), ``predict_next_stage`` onto the
+    cascade stage's grid, ``run_training -tr nnUNetTrainer_NexToU
+    3d_cascade_fullres_nextou`` (the flagship on 1 + 13 input channels, the
+    one-hot noise; K3 and K4 exactly 14 launches per step, K1 14 per eval
+    and validation forward, no recomputation), then ``predict.main -prev``
+    on a preprocessed case (the trainer's validation label on 99% of
+    voxels) and ``--raw`` on a NIfTI copy of its central 96x224x192 crop
+    (CT HU, with its previous-stage seg cropped alike): K1 exactly 14
+    launches per forward, labels in range, the NIfTI at the input's shape.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record, each entry with the path its numbers were taken
@@ -327,6 +356,16 @@ class Totals:
         self.max_abs_err = max(self.max_abs_err, err)
         if library_ms is not None:
             self.library_ms = (self.library_ms or 0.0) + count * library_ms
+
+    def merge(self, other: "Totals") -> None:
+        """Add the sums of another path's shapes."""
+        for key in ("ms", "plain_ms", "bound_ms"):
+            setattr(self, key, getattr(self, key) + getattr(other, key))
+        for key in self.by:
+            self.by[key] += other.by[key]
+        self.max_abs_err = max(self.max_abs_err, other.max_abs_err)
+        if other.library_ms is not None:
+            self.library_ms = (self.library_ms or 0.0) + other.library_ms
 
     def record(self) -> dict:
         return {"max_abs_err": self.max_abs_err, "ms": self.ms, "plain_ms": self.plain_ms,
@@ -725,15 +764,23 @@ def write_dataset(folder: str, spec, configuration: str, cases: int, shape, seed
                      data=rng.standard_normal((1, *shape), dtype=np.float32),
                      seg=np.zeros(shape, np.int16))
             continue
-        cell = (16, 40, 40)
-        coarse = rng.standard_normal((spec.num_classes, *(-(-n // c) for n, c in zip(shape, cell))))
-        seg = np.argmax(coarse, 0).astype(np.int16)
-        for axis, c in enumerate(cell):
-            seg = np.repeat(seg, c, axis=axis)
-        seg = np.ascontiguousarray(seg[tuple(slice(0, n) for n in shape)])
-        assert len(np.unique(seg)) == spec.num_classes, "a label is missing"
-        data = (seg / (spec.num_classes - 1) - 0.5 + rng.normal(0, 0.3, shape)).astype(np.float32)
+        data, seg = labelled_case(rng, shape, spec.num_classes)
         save_case(folder, f"case_{i:03d}", data[None], seg)
+
+
+def labelled_case(rng, shape, num_classes: int):
+    """``(data, seg)`` of ``shape``: every label present, in regions of a
+    coarse random partition (16 x 40 x 40 voxels a cell), and the data the
+    label's intensity plus noise."""
+    cell = (16, 40, 40)
+    coarse = rng.standard_normal((num_classes, *(-(-n // c) for n, c in zip(shape, cell))))
+    seg = np.argmax(coarse, 0).astype(np.int16)
+    for axis, c in enumerate(cell):
+        seg = np.repeat(seg, c, axis=axis)
+    seg = np.ascontiguousarray(seg[tuple(slice(0, n) for n in shape)])
+    assert len(np.unique(seg)) == num_classes, "a label is missing"
+    data = (seg / (num_classes - 1) - 0.5 + rng.normal(0, 0.3, shape)).astype(np.float32)
+    return data, seg
 
 
 def slice_phase(dev, tmp: str, spec, shape) -> dict:
@@ -1134,14 +1181,56 @@ def sm90_plan_str(layout: str, lib_name: str, args: tuple, py_args: tuple) -> st
     return describe_plan(got)
 
 
-def conv_kernel_phase(spec, dev) -> Totals:
-    """K5 at the five flagship convs of its region: bf16 at the serving
-    batch and f32 at batch 1 against the plain version; times by CUDA events
-    beside ``F.conv3d``'s. Returns the bf16 sums: one serving forward's."""
+def hold_k5(name, C, Co, stride, spatial, dtype, B, gen, dev, totals: Totals, count: int = 1,
+            previous_ms: float | None = None):
+    """K5 at one conv shape against its plain version (phase 9's rule: f32
+    within 1e-4, bf16 within one rounding of the output, 2^-7 of the value
+    + 1e-3); its time beside ``F.conv3d``'s, the plain version's, the bound
+    and (bf16) the previous design's where it was measured, added ``count``
+    times to ``totals``."""
     import torch.nn.functional as F
 
     from nextou_tpu_torch.kernels.conv import conv3d, conv3d_reference
 
+    x = torch.randn(B, C, *spatial, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(Co, C, 3, 3, 3, generator=gen, device=dev) * 0.05).to(dtype)
+    got = conv3d(x, w, stride)
+    torch.cuda.synchronize()
+    want = conv3d_reference(x, w, stride)
+    out_spatial = tuple(n // s for n, s in zip(spatial, stride))
+    assert got.shape == want.shape == (B, Co, *out_spatial) and got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    diff = (got.float() - want.float()).abs()
+    err, differ = diff.max().item(), (diff > 0).float().mean().item()
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * want.float().abs() + 1e-3
+    ok = bool((diff <= tol).all())
+    del diff, want, tol
+    t_k5 = cuda_ms(lambda: conv3d(x, w, stride), iters=3, warmup=1)
+    t_lib = cuda_ms(lambda: F.conv3d(x, w, None, stride, 1))
+    t_plain = cuda_ms(lambda: conv3d_reference(x, w, stride), iters=2, warmup=1)
+    flops = 2.0 * B * math.prod(out_spatial) * 27 * C * Co
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    bound, by = bound_ms(nbytes(x, w, got), flops, peak)
+    totals.add(count, t_k5, t_plain, bound, by, err, t_lib)
+    extra = "f32 FMA kernel (unchanged)"
+    if dtype == torch.bfloat16:
+        extra = ((f"previous design {previous_ms:.3f} ms; " if previous_ms is not None else "")
+                 + sm90_plan_str("ncdhw", "conv3d", (B, C, *spatial, Co, 3, 3, 3, *stride),
+                                 (B, C, spatial, Co, (3, 3, 3), stride)))
+    print(f"K5 {name} B={B} {C}->{Co} stride {stride} in {spatial} {str(dtype)[6:]}: "
+          f"max|err| {err:.3g} ({differ:.2e} of values differ)  K5 {t_k5:.3f} ms "
+          f"({flops / t_k5 / 1e9:.1f} TFLOP/s)  cudnn {t_lib:.3f} ms  plain {t_plain:.3f} ms  "
+          f"bound {bound:.4f} ms ({by}); {extra}")
+    if not ok:
+        raise AssertionError(f"K5 disagrees with the plain version at {name} {dtype}")
+    del x, w, got
+    torch.cuda.empty_cache()
+
+
+def conv_kernel_phase(spec, dev) -> Totals:
+    """K5 at the five flagship convs of its region: bf16 at the serving
+    batch and f32 at batch 1 against the plain version; times by CUDA events
+    beside ``F.conv3d``'s. Returns the bf16 sums: one serving forward's."""
     calls = conv_calls(spec)
     if calls != FLAGSHIP_CONVS:
         raise AssertionError(f"conv_kernel='1' routes {calls}")
@@ -1151,39 +1240,8 @@ def conv_kernel_phase(spec, dev) -> Totals:
     totals = {torch.bfloat16: Totals(), torch.float32: Totals()}
     for name, C, Co, stride, spatial in calls:
         for dtype, B in ((torch.bfloat16, TILE_BATCH * MIRRORS_PER_FORWARD), (torch.float32, 1)):
-            x = torch.randn(B, C, *spatial, generator=gen, device=dev).to(dtype)
-            w = (torch.randn(Co, C, 3, 3, 3, generator=gen, device=dev) * 0.05).to(dtype)
-            got = conv3d(x, w, stride)
-            torch.cuda.synchronize()
-            want = conv3d_reference(x, w, stride)
-            out_spatial = tuple(n // s for n, s in zip(spatial, stride))
-            assert got.shape == want.shape == (B, Co, *out_spatial) and got.dtype == dtype
-            assert torch.isfinite(got.float()).all()
-            diff = (got.float() - want.float()).abs()
-            err, differ = diff.max().item(), (diff > 0).float().mean().item()
-            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * want.float().abs() + 1e-3
-            ok = bool((diff <= tol).all())
-            del diff, want, tol
-            t_k5 = cuda_ms(lambda: conv3d(x, w, stride), iters=3, warmup=1)
-            t_lib = cuda_ms(lambda: F.conv3d(x, w, None, stride, 1))
-            t_plain = cuda_ms(lambda: conv3d_reference(x, w, stride), iters=2, warmup=1)
-            flops = 2.0 * B * math.prod(out_spatial) * 27 * C * Co
-            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-            bound, by = bound_ms(nbytes(x, w, got), flops, peak)
-            totals[dtype].add(1, t_k5, t_plain, bound, by, err, t_lib)
-            extra = "f32 FMA kernel (unchanged)"
-            if dtype == torch.bfloat16:
-                extra = (f"previous design {MMA_SYNC_DESIGN_MS['K5'][name]:.3f} ms; "
-                         + sm90_plan_str("ncdhw", "conv3d", (B, C, *spatial, Co, 3, 3, 3, *stride),
-                                         (B, C, spatial, Co, (3, 3, 3), stride)))
-            print(f"K5 {name} B={B} {C}->{Co} stride {stride} in {spatial} {str(dtype)[6:]}: "
-                  f"max|err| {err:.3g} ({differ:.2e} of values differ)  K5 {t_k5:.3f} ms "
-                  f"({flops / t_k5 / 1e9:.1f} TFLOP/s)  cudnn {t_lib:.3f} ms  plain {t_plain:.3f} ms  "
-                  f"bound {bound:.4f} ms ({by}); {extra}")
-            if not ok:
-                raise AssertionError(f"K5 disagrees with the plain version at {name} {dtype}")
-            del x, w, got
-        torch.cuda.empty_cache()
+            hold_k5(name, C, Co, stride, spatial, dtype, B, gen, dev, totals[dtype],
+                    previous_ms=MMA_SYNC_DESIGN_MS["K5"][name])
     for dtype, t in totals.items():
         prev = (f", previous design {sum(MMA_SYNC_DESIGN_MS['K5'].values()):.3f} ms"
                 if dtype == torch.bfloat16 else "")
@@ -1840,7 +1898,8 @@ def host_accumulation_phase(dev, tmp: str, spec) -> dict:
 
 def fold_ensemble_phase(dev, tmp: str, spec) -> dict:
     """Phase 17: two folds' checkpoints, their ensemble with saved
-    probabilities, the ensemble CLI and postprocessing, on phase 5's cases."""
+    probabilities, the ensemble CLI and postprocessing, on phase 5's first
+    case (one case keeps the script inside half its time limit)."""
     from nextou_tpu_torch import ensemble, postprocess, predict
     from nextou_tpu_torch.kernels.knn import knn_max_cuda
     from nextou_tpu_torch.models import NexToU
@@ -1861,7 +1920,7 @@ def fold_ensemble_phase(dev, tmp: str, spec) -> dict:
     out = {name: os.path.join(tmp, f"ens_{name}") for name in (
         "f01", "f0", "f1", "pp", "cli", "applied")}
     base = [folds, data_dir, config, "--save-probabilities", "--tile-batch", str(TILE_BATCH),
-            "--device", str(dev)]
+            "--cases", "case_000", "--device", str(dev)]
     knn_max_cuda.launches = 0
     t0 = time.time()
     seconds = {}
@@ -1870,9 +1929,9 @@ def fold_ensemble_phase(dev, tmp: str, spec) -> dict:
         t = time.time()
         log = run_main(predict.main, base + extra + ["-o", out[name]])
         seconds[name] = time.time() - t
-        assert log.count("(device accumulation)") == 2, log
+        assert log.count("(device accumulation)") == 1, log
     launches = knn_max_cuda.launches
-    forwards = 2 * 2 * (8 // MIRRORS_PER_FORWARD) * 5  # 2 cases x 2 tile batches, 5 folds' runs
+    forwards = 2 * (8 // MIRRORS_PER_FORWARD) * 5  # 2 tile batches, 5 folds' runs
     t = time.time()
     run_main(ensemble.main, [out["f0"], out["f1"], "-o", out["cli"]])
     run_main(postprocess.main, ["apply", out["f0"], "-o", out["applied"], "-pp", pp_file])
@@ -1887,7 +1946,7 @@ def fold_ensemble_phase(dev, tmp: str, spec) -> dict:
         with np.load(os.path.join(out[name], f"{cid}.npz")) as z:
             return z[key]
 
-    for cid in ("case_000", "case_001"):
+    for cid in ("case_000",):
         p0, p1, p01 = (load(n, cid, "probabilities").astype(np.float32) for n in ("f0", "f1", "f01"))
         err = float(np.abs(p01 - (p0 + p1) / 2).max())
         seg, cli = load("f01", cid), load("cli", cid)
@@ -1908,6 +1967,426 @@ def fold_ensemble_phase(dev, tmp: str, spec) -> dict:
         if not (np.array_equal(pp, applied) and pp.dtype == applied.dtype):
             raise AssertionError(f"{cid}: predict -pp differs from postprocess apply")
     return {"launches": launches, "s": time.time() - t0}
+
+
+# --- the networks the plans can name, and the cascade (phases 18-19) -------------------
+
+# The planner's geometry for a BTCV-sized fingerprint (30 CT cases, 512 x 512 in
+# plane at 0.59-0.98 mm, 85-198 slices at 2.5-5 mm), from
+# nextou_tpu/plans/planner.py::plan_experiment: its 3d_lowres and 3d_fullres
+# PlainConvUNets (32 ... 320 features) and the cascade it plans (:408-462); the
+# flagship's NexToU overlay (33 ... 324) on 3d_fullres and its cascade stage.
+PLAN_BASE = {"batch_size": 2, "normalization_schemes": ["CTNormalization"],
+             "use_mask_for_norm": [False], "UNet_class_name": "PlainConvUNet",
+             "UNet_base_num_features": 32, "unet_max_num_features": 320,
+             "n_conv_per_stage_encoder": [2] * 6, "n_conv_per_stage_decoder": [2] * 5,
+             "batch_dice": False}
+LOWRES_CFG = {**PLAN_BASE, "patch_size": [96, 160, 160], "spacing": [3.25, 1.62, 1.62],
+              "pool_op_kernel_sizes": [[1, 1, 1]] + [[2, 2, 2]] * 4 + [[1, 2, 2]],
+              "conv_kernel_sizes": [[3, 3, 3]] * 6, "data_identifier": "nnUNetPlans_3d_lowres",
+              "next_stage": "3d_cascade_fullres_nextou"}
+FULLRES_CFG = {**PLAN_BASE, "patch_size": [56, 192, 160], "spacing": [2.5, 0.79, 0.79],
+               "pool_op_kernel_sizes": [[1, 1, 1], [1, 2, 2], [2, 2, 2], [2, 2, 2], [2, 2, 2],
+                                        [1, 2, 2]],
+               "conv_kernel_sizes": [[1, 3, 3]] + [[3, 3, 3]] * 5,
+               "data_identifier": "nnUNetPlans_3d_fullres"}
+# nnU-Net v2's residual-encoder layout on 3d_fullres (residual_encoder_unet_planners.py):
+# blocks per encoder stage, one conv per decoder stage
+RESENC_CFG = {**FULLRES_CFG, "UNet_class_name": "ResidualEncoderUNet",
+              "n_conv_per_stage_encoder": [1, 3, 4, 6, 6, 6], "n_conv_per_stage_decoder": [1] * 5}
+NEXTOU_CFG = {"inherits_from": "3d_fullres", "UNet_class_name": "NexToU",
+              "patch_size": [64, 224, 192], "UNet_base_num_features": 33,
+              "unet_max_num_features": 324,
+              "pool_op_kernel_sizes": [[1, 1, 1], [1, 2, 2]] + [[2, 2, 2]] * 4}
+CASCADE_CFG = {"inherits_from": "3d_fullres_nextou", "previous_stage": "3d_lowres"}
+# the convs K5 takes in the 3d_lowres network (e0a on the one input channel),
+# and in the residual encoder: its stage-1 conv1 (name, C, Co, stride, input)
+LOWRES_CONVS = [
+    ("e0a", 1, 32, (1, 1, 1), (96, 160, 160)), ("e0b", 32, 32, (1, 1, 1), (96, 160, 160)),
+    ("e1a", 32, 64, (2, 2, 2), (96, 160, 160)), ("d0a", 64, 32, (1, 1, 1), (96, 160, 160)),
+    ("d0b", 32, 32, (1, 1, 1), (96, 160, 160)),
+]
+RESENC_CONV = ("r1", 32, 64, (1, 2, 2), (56, 192, 160))
+# phase 18 (a): two volumes on the lowres grid of a mid-sized BTCV case (2 x 2 x 2
+# tiles); phase 19: three cases on the cascade stage's grid (~ 1 x 96 x 320 x 288)
+LOWRES_VOLUME, CASCADE_CASES, CASCADE_SHAPE = (112, 192, 192), 3, (96, 320, 288)
+CASCADE_EPOCHS, CASCADE_ITERS = 1, 4
+
+
+def write_plans(folder: str, configurations: dict, cases: int, transpose=None):
+    """``nnUNetPlans.json`` with ``configurations``, CT intensity properties
+    and (where given) a transpose, and a 14-label ``dataset.json``."""
+    os.makedirs(folder, exist_ok=True)
+    plans = {"dataset_name": "Dataset999_Smoke", "plans_name": "nnUNetPlans",
+             "configurations": configurations,
+             "foreground_intensity_properties_per_channel": {"0": CT_PROPERTIES}}
+    if transpose is not None:
+        plans["transpose_forward"] = plans["transpose_backward"] = list(transpose)
+    with open(os.path.join(folder, "nnUNetPlans.json"), "w") as f:
+        json.dump(plans, f)
+    labels = {"background": 0, **{f"organ{i}": i for i in range(1, 14)}}
+    with open(os.path.join(folder, "dataset.json"), "w") as f:
+        json.dump({"labels": labels, "numTraining": cases, "channel_names": {"0": "CT"},
+                   "file_ending": ".nii.gz"}, f)
+
+
+def moved_parameters(model, before: dict) -> list:
+    """The parameters equal to ``before``; raises on a non-finite one or on
+    one that should have moved (phase 7's rule: only a bias under a norm,
+    and the zero-weight head's bias, may stay)."""
+    may_stay = re.compile(r"\.(conv|fc[12]\.0|nn\.0)\.bias$|^decoder\.seg_layers\.0\.bias$")
+    unmoved = []
+    for n, p in model.named_parameters():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"parameter {n} is not finite")
+        if torch.equal(p, before[n]):
+            unmoved.append(n)
+    if any(not may_stay.search(n) for n in unmoved):
+        raise AssertionError(f"parameters that did not move: {unmoved[:5]}")
+    return unmoved
+
+
+def plans_networks_phase(dev, tmp: str) -> dict:
+    """Phase 18: (a) the 3d_lowres PlainConvUNet served through
+    ``predict.main -tr nnUNetTrainer`` with the conv kernel off and on, and
+    K5 at its five convs; (b) the 3d_fullres ResidualEncoderUNet's forward
+    and train steps through ``nnUNetTrainer``; (c) the plain Grapher at the
+    flagship's bottleneck, card against CPU."""
+    from nextou_tpu_torch import predict
+    from nextou_tpu_torch.core.pos_embed import relative_pos_bias
+    from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda
+    from nextou_tpu_torch.kernels.knn import knn_max_cuda
+    from nextou_tpu_torch.models import PlainConvUNet
+    from nextou_tpu_torch.models.presets import flagship_3d_spec
+    from nextou_tpu_torch.nn.graphers import Grapher
+    from nextou_tpu_torch.plans import PlansManager
+    from nextou_tpu_torch.train import get_trainer_class
+    from nextou_tpu_torch.utils import init_weights
+
+    # (a) the lowres plain U-Net, served
+    t_phase = time.time()
+    data_dir, model_dir = os.path.join(tmp, "lowres_data"), os.path.join(tmp, "lowres_model")
+    write_plans(data_dir, {"3d_lowres": LOWRES_CFG}, 2)
+    rng = np.random.default_rng(18)
+    for i in range(2):
+        np.savez(os.path.join(data_dir, f"case_{i:03d}.npz"),
+                 data=rng.standard_normal((1, *LOWRES_VOLUME), dtype=np.float32),
+                 seg=np.zeros(LOWRES_VOLUME, np.int16))
+    plans, dataset_json, spec = predict.load_dataset(data_dir, "3d_lowres", "nnUNetTrainer")
+    if conv_calls(spec) != LOWRES_CONVS or spec.stem_features is not None or any(
+            st.gnn for st in spec.encoder):
+        raise AssertionError(f"the lowres PlainConvUNet routes {conv_calls(spec)} to K5")
+    os.makedirs(model_dir)
+    model = init_weights(PlainConvUNet(spec, device=dev), seed=0)
+    torch.save({"network_weights": model.state_dict()},
+               os.path.join(model_dir, "checkpoint_final.pth"))
+    del model
+    tiles = math.prod(len(s) for s in compute_sliding_window_steps(LOWRES_VOLUME, spec.patch_size))
+    forwards = 2 * math.ceil(tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
+    k5, segs = 0, {}
+    for mode in ("0", "1"):
+        out_dir = os.path.join(tmp, f"lowres_out_{mode}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        conv3d_cuda.launches = 0
+        t0 = time.time()
+        predict.main([model_dir, data_dir, "3d_lowres", "-tr", "nnUNetTrainer", "-o", out_dir,
+                      "--tile-batch", str(TILE_BATCH), "--device", str(dev),
+                      "--conv-kernel", mode])
+        torch.cuda.synchronize()
+        main_s, launches = time.time() - t0, conv3d_cuda.launches
+        print(f"predict.main -tr nnUNetTrainer 3d_lowres --conv-kernel {mode}: 2 volumes "
+              f"{LOWRES_VOLUME}, {tiles} tiles each, {forwards} forwards, {main_s:.2f} s incl. "
+              f"model build and load; K5 launches {launches} ({launches / forwards:g} per "
+              f"forward); peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        if launches != (len(LOWRES_CONVS) * forwards if mode == "1" else 0):
+            raise AssertionError(f"K5 launched {launches} times in {forwards} forwards")
+        k5 += launches
+        for i in range(2):
+            with np.load(os.path.join(out_dir, f"case_{i:03d}.npz")) as z:
+                seg = z["seg"]
+            if seg.shape != LOWRES_VOLUME or seg.dtype != np.uint8 or seg.max() >= 14:
+                raise AssertionError(f"lowres seg {seg.shape} {seg.dtype} max {seg.max()}")
+            segs.setdefault(i, []).append(seg)
+    same = float(np.mean([np.mean(a == b) for a, b in segs.values()]))
+    print(f"the same label with the conv kernel on as off on {same:.4f} of voxels; labels "
+          f"{np.unique(segs[0][1]).tolist()}")
+    checkpoint = os.path.join(model_dir, "checkpoint_final.pth")
+    data = next(d for _, d in predict.iter_cases(data_dir, plans, "3d_lowres", ["case_000"]))
+    times = {}
+    for mode in ("1", "0"):
+        model = predict.load_model(spec, checkpoint, dev, conv_kernel=mode)
+        seg_pred = predict.build_predictor(model, (0, 1, 2), tile_batch=TILE_BATCH, output="seg")
+        seg_pred(data)  # the library's and the kernel's first calls
+        torch.cuda.synchronize()
+        t0 = time.time()
+        seg_pred(data)
+        torch.cuda.synchronize()
+        times[mode] = time.time() - t0
+        del model, seg_pred
+    print(f"3d_lowres seconds per volume (8-way TTA, tile batch {TILE_BATCH}, bf16): "
+          f"{times['1']:.3f} with conv_kernel='1', {times['0']:.3f} with '0'")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    totals = {torch.bfloat16: Totals(), torch.float32: Totals()}
+    for name, C, Co, stride, spatial in LOWRES_CONVS:
+        for dtype, B in ((torch.bfloat16, TILE_BATCH * MIRRORS_PER_FORWARD), (torch.float32, 1)):
+            hold_k5(name, C, Co, stride, spatial, dtype, B, gen, dev, totals[dtype])
+
+    # (b) the residual encoder U-Net through nnUNetTrainer, K5 on
+    config = "3d_fullres_resenc"
+    res_dir = os.path.join(tmp, "resenc")
+    write_plans(res_dir, {config: RESENC_CFG}, 1)
+    plans_path = os.path.join(res_dir, "nnUNetPlans.json")
+    trainer = get_trainer_class("nnUNetTrainer")(
+        plans_path, config, 0, load_json(os.path.join(res_dir, "dataset.json")),
+        preprocessed_folder=res_dir, output_folder=os.path.join(res_dir, "out"), device=dev,
+        remat=False, conv_kernel="1").initialize()
+    rs = trainer.model_spec
+    assert PlansManager(plans_path).get_configuration(config).UNet_class_name == \
+        "ResidualEncoderUNet"
+    if rs.stem_features != RESENC_CFG["UNet_base_num_features"] or not all(
+            st.residual for st in rs.encoder) or [
+            st.n_conv for st in rs.encoder] != [1, 3, 4, 6, 6, 6]:
+        raise AssertionError(f"nnUNetTrainer built {rs}")
+    n_params = sum(p.numel() for p in trainer.network.parameters())
+    rng = np.random.default_rng(19)
+    batch = {"data": rng.standard_normal((TRAIN_BATCH, *rs.patch_size, 1), dtype=np.float32),
+             "seg": rng.integers(0, 14, (TRAIN_BATCH, *rs.patch_size))}
+    conv3d_cuda.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.network.eval()
+    with torch.no_grad():
+        x = torch.from_numpy(batch["data"]).to(dev)
+        outs = trainer.network(x)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        outs = trainer.network(x)
+        torch.cuda.synchronize()
+        fwd_s = time.time() - t0
+    if not (len(outs) == 5 and outs[0].shape == (TRAIN_BATCH, *rs.patch_size, 14)
+            and all(torch.isfinite(o.float()).all() for o in outs)):
+        raise AssertionError("the residual encoder U-Net's forward")
+    fwd_k5 = conv3d_cuda.launches
+    del outs, x
+    before = {n: p.detach().clone() for n, p in trainer.network.named_parameters()}
+    conv3d_cuda.launches = 0
+    step_s = []
+    for i in range(3):
+        t0 = time.time()
+        trainer.state, metrics = trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+        print(f"ResidualEncoderUNet train step {i}: loss {loss:.4f} grad_norm {norm:.4f} "
+              f"{step_s[-1]:.3f} s")
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise AssertionError(f"ResidualEncoderUNet train step {i}: loss {loss}")
+    res_k5 = conv3d_cuda.launches
+    res_peak = torch.cuda.max_memory_allocated(dev)
+    unmoved = moved_parameters(trainer.network, before)
+    print(f"ResidualEncoderUNet (3d_fullres {rs.patch_size}, blocks "
+          f"{[st.n_conv for st in rs.encoder]}, {n_params / 1e6:.2f} M parameters), batch "
+          f"{TRAIN_BATCH}, bf16: forward {fwd_s:.3f} s (K5 {fwd_k5 // 2} launch per forward); "
+          f"train steps {', '.join(f'{t:.3f}' for t in step_s)} s (K5 {res_k5} launches); "
+          f"{len(unmoved)} of {len(before)} parameter tensors unmoved (biases under a norm); "
+          f"peak device memory {res_peak / 2**30:.2f} GiB")
+    if fwd_k5 != 2 or res_k5 != 3:
+        raise AssertionError(f"K5 launched {fwd_k5} times in 2 forwards, {res_k5} in 3 steps")
+    del trainer, before
+    torch.cuda.empty_cache()
+    for dtype, B in ((torch.bfloat16, TRAIN_BATCH), (torch.float32, 1)):
+        hold_k5(*RESENC_CONV[:5], dtype, B, gen, dev, totals[dtype])
+
+    # (c) the plain Grapher over the flagship's bottleneck map, f32, card vs CPU
+    bottleneck = flagship_3d_spec().encoder[-1]
+    C, sp, k = bottleneck.features, bottleneck.img_shape, bottleneck.gnn[0].k
+    n = math.prod(sp)
+    out = []
+    x = np.random.default_rng(20).standard_normal((TRAIN_BATCH, *sp, C)).astype(np.float32)
+    for d in (torch.device("cpu"), dev):
+        table = torch.tensor(relative_pos_bias(C, n, n, 3), device=d)[None]
+        g = Grapher(C, table, dims=3, k=k, groups=6, norm="instance", device=d)
+        init_weights(g, seed=5)
+        with torch.no_grad():
+            for p in g.parameters():
+                if p.dim() >= 2:
+                    p.mul_(0.5)
+            knn_max_cuda.launches = 0
+            out.append(g.eval()(torch.from_numpy(x).to(d)).cpu().numpy())
+    grapher_k1 = knn_max_cuda.launches
+    want, got = out
+    off = np.abs(got - want) > 2e-3 + 1e-3 * np.abs(want)
+    print(f"Grapher over the flagship bottleneck ({TRAIN_BATCH} x {sp} x {C}, k {k}, N {n}), "
+          f"f32, card vs CPU: max|diff| {np.abs(got - want).max():.3g}, {off.mean():.2e} of "
+          f"values outside atol 2e-3/rtol 1e-3; K1 launches {grapher_k1}")
+    if grapher_k1 != 1 or off.mean() > 1e-3:
+        raise AssertionError("the Grapher on the card disagrees with the CPU or missed K1")
+    print(f"phase 18: {time.time() - t_phase:.1f} s")
+    return {"k5": k5 + fwd_k5 + res_k5, "k1": grapher_k1, "conv3d": totals[torch.bfloat16],
+            "lowres_s_per_volume": times, "resenc_s_per_step": min(step_s[1:]),
+            "resenc_peak_bytes": res_peak}
+
+
+def load_json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def cascade_phase(dev, tmp: str) -> dict:
+    """Phase 19: the 3d_lowres -> 3d_cascade_fullres_nextou cascade: train the
+    lowres stage, predict_next_stage, train the NexToU cascade stage on the
+    one-hot channels, and serve it with -prev, preprocessed and raw."""
+    from nextou_tpu_torch import predict, predict_next_stage, run_training
+    from nextou_tpu_torch.data.dataset import save_case
+    from nextou_tpu_torch.data.io import read_image, write_nifti
+    from nextou_tpu_torch.data.resampling import resample_data_or_seg_to_shape
+    from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda
+    from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda
+    from nextou_tpu_torch.plans import PlansManager
+
+    t_phase = time.time()
+    folder = os.path.join(tmp, "cascade")
+    config = "3d_cascade_fullres_nextou"
+    write_plans(folder, {"3d_lowres": LOWRES_CFG, "3d_fullres": FULLRES_CFG,
+                         "3d_fullres_nextou": NEXTOU_CFG, config: CASCADE_CFG},
+                CASCADE_CASES, transpose=(2, 1, 0))
+    plans = PlansManager(os.path.join(folder, "nnUNetPlans.json"))
+    low, full = plans.get_configuration("3d_lowres"), plans.get_configuration(config)
+    low_shape = tuple(round(n * a / b) for n, a, b in zip(CASCADE_SHAPE, full.spacing,
+                                                          low.spacing))
+    rng = np.random.default_rng(19)
+    cases = []
+    for i in range(CASCADE_CASES):
+        cid = f"case_{i:03d}"
+        data, seg = labelled_case(rng, CASCADE_SHAPE, 14)
+        save_case(os.path.join(folder, full.data_identifier), cid, data[None], seg)
+        data_low = resample_data_or_seg_to_shape(data[None], low_shape, full.spacing, low.spacing,
+                                                 is_seg=False, **low.resampling_fn_data_kwargs)
+        seg_low = resample_data_or_seg_to_shape(seg, low_shape, full.spacing, low.spacing,
+                                                is_seg=True, **low.resampling_fn_seg_kwargs)
+        save_case(os.path.join(folder, low.data_identifier), cid, data_low, seg_low)
+        cases.append((cid, data))
+    print(f"{CASCADE_CASES} labelled cases {CASCADE_SHAPE} and their lowres copies {low_shape} "
+          f"(resampled from {full.spacing} to {low.spacing} mm) written in "
+          f"{time.time() - t_phase:.1f} s")
+
+    counters = (knn_max_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda)
+    for counter in counters:
+        counter.launches = 0
+    t0 = time.time()
+    lowres = run_training.main([folder, "3d_lowres", "0", "-tr", "nnUNetTrainer", "--epochs",
+                                str(CASCADE_EPOCHS), "--iters", str(CASCADE_ITERS),
+                                "--device", str(dev)])
+    torch.cuda.synchronize()
+    low_s = time.time() - t0
+    if any(c.launches for c in counters) or not math.isfinite(lowres.log_history[0]["train_loss"]):
+        raise AssertionError("the lowres stage launched a kNN or conv kernel, or its loss")
+    e = lowres.log_history[0]
+    print(f"run_training -tr nnUNetTrainer 3d_lowres: {low_s:.2f} s incl. model build and the "
+          f"final validation; train {e['train_time_s'] / CASCADE_ITERS:.3f} s per iteration, "
+          f"loss {e['train_loss']:.4f}, waiting for the loader {e['loader_wait_s']:.2f} s")
+
+    t0 = time.time()
+    prev_dir = predict_next_stage.main([folder, lowres.output_folder, "-c", "3d_lowres",
+                                        "--next", config, "-tr", "nnUNetTrainer",
+                                        "--device", str(dev)])
+    torch.cuda.synchronize()
+    for cid, _ in cases:
+        with np.load(os.path.join(prev_dir, f"{cid}.npz")) as z:
+            seg = z["seg"]
+        if seg.shape != CASCADE_SHAPE or seg.dtype != np.int16 or seg.max() >= 14:
+            raise AssertionError(f"predict_next_stage {cid}: {seg.shape} {seg.dtype}")
+    print(f"predict_next_stage: {CASCADE_CASES} cases in {time.time() - t0:.2f} s, segs on the "
+          f"cascade stage's grid {CASCADE_SHAPE}")
+
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    trainer = run_training.main([folder, config, "0", "-tr", "nnUNetTrainer_NexToU",
+                                 "--epochs", str(CASCADE_EPOCHS), "--iters", str(CASCADE_ITERS),
+                                 "--device", str(dev)])
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    k1, k3, k4, k5 = (c.launches for c in counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    _, val = trainer.get_split()
+    tiles = math.prod(len(s) for s in compute_sliding_window_steps(CASCADE_SHAPE,
+                                                                   trainer.model_spec.patch_size))
+    fwd_case = math.ceil(tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
+    steps = CASCADE_EPOCHS * CASCADE_ITERS
+    evals = CASCADE_EPOCHS * trainer.num_val_iterations_per_epoch
+    e = trainer.log_history[-1]
+    print(f"run_training -tr nnUNetTrainer_NexToU {config}: in-channels "
+          f"{trainer.model_spec.in_channels}, remat {trainer.remat!r}, {main_s:.2f} s incl. model "
+          f"build, {evals} eval steps and the validation of {len(val.case_ids)} case(s); train "
+          f"{e['train_time_s'] / CASCADE_ITERS:.3f} s per iteration, loss {e['train_loss']:.4f}, "
+          f"waiting for the loader {e['loader_wait_s']:.2f} s; K3 {k3}, K4 {k4}, K1 {k1}, K5 {k5} "
+          f"launches; peak device memory {peak / 2**30:.2f} GiB")
+    if trainer.model_spec.in_channels != 14 or trainer.remat is not False:
+        raise AssertionError("the cascade stage's network or remat choice")
+    if (k3, k4, k1, k5) != (14 * steps, 14 * steps,
+                            14 * (evals + len(val.case_ids) * fwd_case), 0):
+        raise AssertionError(f"cascade trainer launches: K3 {k3} K4 {k4} K1 {k1} K5 {k5}")
+    if not (math.isfinite(e["train_loss"]) and math.isfinite(e["val_loss"])):
+        raise AssertionError("the cascade stage's losses")
+    out = trainer.output_folder
+
+    # serve the cascade stage with -prev: a preprocessed case, then a raw NIfTI one
+    cid = val.case_ids[0]
+    knn_max_cuda.launches = 0
+    t0 = time.time()
+    predict.main([out, folder, config, "-tr", "nnUNetTrainer_NexToU", "-prev", prev_dir,
+                  "-o", os.path.join(tmp, "cascade_pred"), "--cases", cid,
+                  "--tile-batch", str(TILE_BATCH), "--device", str(dev)])
+    torch.cuda.synchronize()
+    pre_s, pre_k1 = time.time() - t0, knn_max_cuda.launches
+    with np.load(os.path.join(tmp, "cascade_pred", f"{cid}.npz")) as z:
+        seg = z["seg"]
+    with np.load(os.path.join(out, "validation", f"{cid}.npz")) as z:
+        agree = float(np.mean(seg == z["seg"]))
+    print(f"predict.main -prev {cid}: {pre_s:.2f} s incl. model build, K1 {pre_k1} launches "
+          f"({fwd_case} forwards), labels {np.unique(seg).tolist()}, the trainer's validation "
+          f"label on {agree:.6f} of voxels")
+    if pre_k1 != 14 * fwd_case or seg.shape != CASCADE_SHAPE or seg.max() >= 14 or agree < 0.99:
+        raise AssertionError(f"predict -prev {cid}")
+
+    # the raw case: the same case's central patch-wide crop as CT HU, (x, y, z),
+    # and its previous-stage seg cropped alike
+    raw_dir, raw_prev = os.path.join(tmp, "cascade_raw"), os.path.join(tmp, "cascade_raw_prev")
+    os.makedirs(raw_dir)
+    os.makedirs(raw_prev)
+    crop = (slice(None), *(slice((n - p) // 2, (n - p) // 2 + p) for n, p in
+                           zip(CASCADE_SHAPE[1:], trainer.model_spec.patch_size[1:])))
+    hu = np.transpose(np.round(dict(cases)[cid][crop] * 300 + 60), (2, 1, 0)).astype(np.int16)
+    write_nifti(os.path.join(raw_dir, f"{cid}_0000.nii.gz"), hu,
+                spacing=tuple(full.spacing[::-1]))
+    with np.load(os.path.join(prev_dir, f"{cid}.npz")) as z:
+        np.savez(os.path.join(raw_prev, f"{cid}.npz"), seg=z["seg"][crop])
+    raw_tiles = math.prod(len(s) for s in compute_sliding_window_steps(
+        hu.shape[::-1], trainer.model_spec.patch_size))
+    raw_fwd = math.ceil(raw_tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
+    knn_max_cuda.launches = 0
+    t0 = time.time()
+    predict.main([out, raw_dir, config, "--raw", "-tr", "nnUNetTrainer_NexToU", "-prev",
+                  raw_prev, "-o", os.path.join(tmp, "cascade_raw_out"),
+                  "--tile-batch", str(TILE_BATCH), "--device", str(dev)])
+    torch.cuda.synchronize()
+    raw_s, raw_k1 = time.time() - t0, knn_max_cuda.launches
+    seg, spacing = read_image(os.path.join(tmp, "cascade_raw_out", f"{cid}.nii.gz"))
+    print(f"predict.main --raw -prev {cid} (cropped to {hu.shape[::-1]}): {raw_s:.2f} s, K1 "
+          f"{raw_k1} launches ({raw_fwd} forwards), NIfTI {seg.shape} {seg.dtype} at "
+          f"{tuple(round(s, 3) for s in spacing)} mm, labels {np.unique(seg).tolist()}")
+    if raw_k1 != 14 * raw_fwd or seg.shape != hu.shape or seg.max() >= 14 or seg.min() < 0:
+        raise AssertionError(f"predict --raw -prev {cid}")
+    print(f"phase 19: {time.time() - t_phase:.1f} s")
+    return {"k1": k1 + pre_k1 + raw_k1, "k3": k3, "k4": k4,
+            "s_per_iter": e["train_time_s"] / CASCADE_ITERS, "peak_bytes": peak}
 
 
 def main() -> int:
@@ -1964,27 +2443,41 @@ def main() -> int:
     tools = tools_phase(dev)
     records["conv_probe"], records["knn_dissect"] = tools["conv_probe"], tools["knn_dissect"]
     records["conv_cl"], conv_cl_launches = conv_cl_phase(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        nets = plans_networks_phase(dev, tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cascade = cascade_phase(dev, tmp)
+    records["conv3d"].merge(nets["conv3d"])
 
     # each kernel's numbers belong to the path that runs it ("path"): K1 to
-    # predict.main on the flagship (phases 5, 15, 16 b, 17), K3 and K4 to the
-    # flagship's train steps, K2 to the small dilated network's (no flagship graph is dilated), K5 to
-    # the flagship with conv_kernel="1" (its launches: one served volume and
-    # two train steps), the probes' kernels to their tools
+    # predict.main on the flagship (phases 5, 15, 16 b, 17) and on the cascade
+    # stage (19), K3 and K4 to the flagship's train steps and the cascade
+    # stage's, K2 to the small dilated network's (no flagship graph is
+    # dilated), K5 to the networks with conv_kernel="1" (the flagship's served
+    # volume and train steps; the 3d_lowres network's volumes and the residual
+    # encoder's forwards and steps, phase 18: its times sum one forward of
+    # each), the probes' kernels to their tools
     sources = {
         "knn_max": ("knn_max.cu", "nextou_tpu/kernels/knn.py:40",
                     sl["launches"] + raw["launches"] + host["launches"] + ens["launches"]
-                    + trained["k1"],
+                    + trained["k1"] + nets["k1"] + cascade["k1"],
                     "flagship predict: preprocessed, raw, over the budget, fold ensembles; "
-                    "the trainer's eval steps and validation"),
+                    "the trainer's eval steps and validation; the plain Grapher; the cascade "
+                    "stage's eval steps, validation and predict -prev (preprocessed, raw)"),
         "knn_indices": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:184", k2_launches,
                         "small dilated network, train steps"),
-        "knn_max_idx": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:278", tr["k3"] + trained["k3"],
-                        "flagship train steps; the trainer's"),
-        "knn_max_bwd": ("knn_max_bwd.cu", "nextou_tpu/kernels/knn.py:384", tr["k4"] + trained["k4"],
-                        "flagship train steps; the trainer's"),
+        "knn_max_idx": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:278",
+                        tr["k3"] + trained["k3"] + cascade["k3"],
+                        "flagship train steps; the trainer's; the cascade stage's"),
+        "knn_max_bwd": ("knn_max_bwd.cu", "nextou_tpu/kernels/knn.py:384",
+                        tr["k4"] + trained["k4"] + cascade["k4"],
+                        "flagship train steps; the trainer's; the cascade stage's"),
         "conv3d": ("conv3d.cu", "nextou_tpu/kernels/conv.py:90",
-                   sl5["launches"] + tr5["launches"],
-                   "flagship predict and train steps with conv_kernel='1'"),
+                   sl5["launches"] + tr5["launches"] + nets["k5"],
+                   "flagship predict and train steps with conv_kernel='1'; the 3d_lowres "
+                   "PlainConvUNet's predict and the ResidualEncoderUNet's forwards and steps"),
         "conv_probe": ("conv_probe.cu", "tools/exp_mosaic_probe.py:24", tools["probe_launches"],
                        "tools.exp_conv_probe, both output orders"),
         "knn_dissect": ("knn_dissect.cu", "tools/exp_knn_dissect.py:27", tools["dissect_launches"],

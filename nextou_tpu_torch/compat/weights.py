@@ -13,7 +13,20 @@ stack, grapher or FFN. Layout transforms:
 - Dense ``(I, O)`` -> 1x1 conv ``(O, I, *1)``;
 - GroupedDense ``(g, I/g, O/g)`` -> grouped 1x1 conv ``(O, I/g, *1)``;
 - norms: scale/bias -> weight/bias, mean/var -> running_mean/running_var;
-- relative-position constants ``(N, M)`` -> ``relative_pos`` ``(1, N, M)``.
+- relative-position constants ``(N, M)`` -> ``relative_pos`` ``(1, N, M)``;
+- PReLU ``alpha`` -> ``weight`` (``ffn.act``, ``graph_conv.gconv.nn.2``).
+
+Names beyond NexToU's, for the plain and residual U-Nets (the JAX package's
+residual classes have no upstream parity test; these names are the port's
+and are held equal to the JAX package by its tests):
+
+- ``stem/{conv,norm}`` -> ``encoder.stem.convs.0.{conv,norm}``;
+- a residual encoder stage's ``enc_{s}/convs/block_{b}/{conv1,norm1,conv2,
+  norm2,skip_conv,skip_norm}`` -> ``encoder.stages.{s}.0.blocks.{b}.{conv1.conv,
+  conv1.norm,conv2.conv,conv2.norm,skip.conv,skip.norm}``.
+
+``lenient=True`` maps what a tree holds and leaves out what it lacks (a
+checkpoint of another architecture, for ``-pretrained_weights``).
 
 :func:`load_train_state` carries a whole ``nextou_tpu`` ``TrainState`` over:
 the momentum tree of its optimizer has the parameters' structure, so the
@@ -33,20 +46,59 @@ import torch
 from nextou_tpu_torch.models.spec import ModelSpec
 
 
-def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+class _Absent(dict):
+    """A subtree a lenient lookup did not find: every lookup in it is absent
+    too, and every leaf made from it is ``None``."""
+
+    def __getitem__(self, key):
+        return self
 
 
+_ABSENT = _Absent()
+
+
+class _Lenient(dict):
+    """A variable tree whose missing entries read as :data:`_ABSENT`."""
+
+    def __getitem__(self, key):
+        if key not in self:
+            return _ABSENT
+        v = dict.__getitem__(self, key)
+        return _Lenient(v) if isinstance(v, dict) else v
+
+
+def _leaf(fn):
+    """A layout transform that passes an absent leaf through."""
+    return lambda a, *args: a if a is _ABSENT else fn(np.asarray(a), *args)
+
+
+def _t(a) -> torch.Tensor | None:
+    return None if a is _ABSENT else torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+@_leaf
 def _conv_w(w) -> np.ndarray:
-    w = np.asarray(w)
     nd = w.ndim - 2
     return np.transpose(w, (nd + 1, nd, *range(nd)))
 
 
+@_leaf
 def _transp_w(w) -> np.ndarray:
-    w = np.asarray(w)
     nd = w.ndim - 2
     return np.transpose(w[(slice(None, None, -1),) * nd], (nd, nd + 1, *range(nd)))
+
+
+@_leaf
+def _dense_w(w, dims: int) -> np.ndarray:
+    """Dense ``(I, O)`` -> 1x1 conv ``(O, I, *1)``."""
+    return w.T.reshape(*w.T.shape, *([1] * dims))
+
+
+@_leaf
+def _grouped_w(w, dims: int) -> np.ndarray:
+    """GroupedDense ``(g, I/g, O/g)`` -> grouped 1x1 conv ``(O, I/g, *1)``."""
+    g, ci, co = w.shape
+    return np.transpose(w, (0, 2, 1)).reshape(g * co, ci, *([1] * dims))
 
 
 def _norm(ref: str, p, s) -> dict:
@@ -59,12 +111,23 @@ def _norm(ref: str, p, s) -> dict:
 
 
 def _fc(ref: str, p, s, dims: int) -> dict:
-    w = np.asarray(p["dense"]["kernel"])  # (I, O)
     return {
-        ref + ".0.weight": _t(w.T.reshape(*w.T.shape, *([1] * dims))),
+        ref + ".0.weight": _t(_dense_w(p["dense"]["kernel"], dims)),
         ref + ".0.bias": _t(p["dense"]["bias"]),
         **_norm(ref + ".1", p["norm"], s["norm"]),
     }
+
+
+def _prelu(ref: str, act) -> dict:
+    """An ``ActLayer``'s PReLU slopes, where it has them."""
+    return {ref + ".weight": _t(act["PReLU_0"]["alpha"])} if "PReLU_0" in act else {}
+
+
+def _conv_norm(ref: str, conv, norm, norm_stats) -> dict:
+    sd = {ref + ".conv.weight": _t(_conv_w(conv["kernel"]))}
+    if "bias" in conv:
+        sd[ref + ".conv.bias"] = _t(conv["bias"])
+    return {**sd, **_norm(ref + ".norm", norm, norm_stats)}
 
 
 def conv_blocks_state(params, stats) -> dict:
@@ -72,50 +135,73 @@ def conv_blocks_state(params, stats) -> dict:
     sd = {}
     for j in range(len(params)):
         p, s = params[f"block_{j}"], stats[f"block_{j}"]
-        sd[f"convs.{j}.conv.weight"] = _t(_conv_w(p["conv"]["kernel"]))
-        sd[f"convs.{j}.conv.bias"] = _t(p["conv"]["bias"])
-        sd.update(_norm(f"convs.{j}.norm", p["norm"], s["norm"]))
+        sd.update(_conv_norm(f"convs.{j}", p["conv"], p["norm"], s["norm"]))
+    return sd
+
+
+def residual_blocks_state(params, stats) -> dict:
+    """A ``StackedResidualBlocks``' variables -> ``blocks.{b}.conv1/.conv2/
+    .skip``, each ``.conv`` and ``.norm``."""
+    sd = {}
+    for b in range(len(params)):
+        p, s = params[f"block_{b}"], stats[f"block_{b}"]
+        for ours, conv, norm in (("conv1", "conv1", "norm1"), ("conv2", "conv2", "norm2"),
+                                 ("skip", "skip_conv", "skip_norm")):
+            if conv in p:
+                sd.update(_conv_norm(f"blocks.{b}.{ours}", p[conv], p[norm], s[norm]))
     return sd
 
 
 def grapher_state(params, stats, constants, *, graph_norm: str, dims: int) -> dict:
-    """A Swin/Pool grapher's variables -> ``fc1``, ``graph_conv.gconv.nn``,
-    ``fc2`` and ``relative_pos``. ``graph_norm`` is its graph conv's norm."""
+    """A grapher's variables -> ``fc1``, ``graph_conv.gconv.nn``, ``fc2`` and,
+    where it has one, ``relative_pos``. ``graph_norm`` is its graph conv's
+    norm."""
     pn = params["graph_conv"]["gconv"]["nn"]
-    g, ci, co = np.asarray(pn["dense_0"]["kernel"]).shape
-    grouped = np.transpose(np.asarray(pn["dense_0"]["kernel"]), (0, 2, 1))
     sn = stats["graph_conv"]["gconv"]["nn"]["norm_0"] if graph_norm == "batch" else None
-    (table,) = constants.values()
-    return {
+    sd = {
         **_fc("fc1", params["fc1"], stats["fc1"], dims),
-        "graph_conv.gconv.nn.0.weight": _t(grouped.reshape(g * co, ci, *([1] * dims))),
+        "graph_conv.gconv.nn.0.weight": _t(_grouped_w(pn["dense_0"]["kernel"], dims)),
         "graph_conv.gconv.nn.0.bias": _t(pn["dense_0"]["bias"]),
         **_norm("graph_conv.gconv.nn.1", pn["norm_0"], sn),
+        **_prelu("graph_conv.gconv.nn.2", pn.get("act_0", {})),
         **_fc("fc2", params["fc2"], stats["fc2"], dims),
-        "relative_pos": _t(table)[None],
     }
+    for table in constants.values():  # one table, or none without a position bias
+        sd["relative_pos"] = _t(table)[None]
+    return sd
 
 
 def ffn_state(params, stats, dims: int) -> dict:
     return {
         **_fc("fc1", params["fc1"], stats["fc1"], dims),
+        **_prelu("act", params.get("act", {})),
         **_fc("fc2", params["fc2"], stats["fc2"], dims),
     }
 
 
-def variables_to_state_dict(variables, spec: ModelSpec) -> dict[str, torch.Tensor]:
-    """Map ``nextou_tpu`` NexToU variables onto this port's ``state_dict``."""
+def variables_to_state_dict(variables, spec: ModelSpec, *,
+                            lenient: bool = False) -> dict[str, torch.Tensor]:
+    """Map ``nextou_tpu`` variables of the network ``spec`` describes (NexToU,
+    PlainConvUNet or ResidualEncoderUNet) onto this port's ``state_dict``.
+    With ``lenient`` what the tree lacks is left out instead of raising."""
+    if lenient:
+        variables = _Lenient(variables)
     params, stats = variables["params"], variables["batch_stats"]
-    consts = variables["constants"]
+    consts = variables["constants"] if "constants" in variables else {}
     dims = spec.spatial_dims
     sd: dict[str, torch.Tensor] = {}
 
     def put(prefix: str, part: dict):
         sd.update({f"{prefix}.{k}": v for k, v in part.items()})
 
+    if spec.stem_features is not None:
+        put("encoder.stem", conv_blocks_state({"block_0": params["stem"]},
+                                              {"block_0": stats["stem"]}))
+
     def stage(our: str, base: str, st):
         conv_ref = base + ".0" if st.gnn else base
-        put(conv_ref, conv_blocks_state(params[our]["convs"], stats[our]["convs"]))
+        blocks = residual_blocks_state if getattr(st, "residual", False) else conv_blocks_state
+        put(conv_ref, blocks(params[our]["convs"], stats[our]["convs"]))
         for i, b in enumerate(st.gnn):
             ref = f"{base}.{1 + i}.blocks.0"
             graph_norm = "batch" if b.kind == "swin" else spec.gnn_norm
@@ -136,7 +222,7 @@ def variables_to_state_dict(variables, spec: ModelSpec) -> dict[str, torch.Tenso
         sd[f"decoder.transpconvs.{s}.bias"] = _t(tp["bias"])
         sd[f"decoder.seg_layers.{s}.weight"] = _t(_conv_w(head["kernel"]))
         sd[f"decoder.seg_layers.{s}.bias"] = _t(head["bias"])
-    return sd
+    return {k: v for k, v in sd.items() if v is not None}
 
 
 def load_train_state(state, variables, momentum, step: int, spec: ModelSpec) -> None:

@@ -18,15 +18,20 @@ import threading
 
 import numpy as np
 
-from nextou_tpu_torch.data.augment import AugmentConfig, augment_batch
+from nextou_tpu_torch.data.augment import AugmentConfig, augment_batch, cascade_onehot_noise
 from nextou_tpu_torch.data.sampler import PatchSampler
 
 
 class PatchDataLoader:
     """Iterator of {'data': (B, *sp, C) f32, 'seg': (B, *sp) i32} batches.
 
-    Cascade datasets (a previous stage's seg beside each case) are not
-    ported yet (ROADMAP M6b): a producer that samples one raises."""
+    For a cascade stage pass ``onehot_labels`` (the foreground label values):
+    the previous stage's seg patch, augmented with the sample, is one-hot
+    encoded over those labels, perturbed by :func:`cascade_onehot_noise`
+    with ``cascade_noise`` (training), and appended to the data channels
+    (nnU-Net's MoveSegAsOneHotToData). The noise draws from the thread's
+    generator after the sample's augmentation, one sample after the other,
+    as ``nextou_tpu/data/loader.py`` draws it."""
 
     def __init__(
         self,
@@ -35,9 +40,13 @@ class PatchDataLoader:
         seed: int = 0,
         num_threads: int = 2,
         prefetch: int = 4,
+        onehot_labels: tuple[int, ...] | None = None,
+        cascade_noise: bool = False,
     ):
         self.sampler = sampler
         self.augment = augment
+        self.onehot_labels = tuple(onehot_labels) if onehot_labels else None
+        self.cascade_noise = cascade_noise
         self.num_threads = max(1, num_threads)
         self.prefetch = prefetch
         self._rngs = [
@@ -60,11 +69,18 @@ class PatchDataLoader:
             # each thread draws from its own generator, so sampling takes no
             # lock (the sampler's case cache has its own insert lock)
             data, seg, prev = self.sampler.sample_batch(rng=rng)
-            if prev is not None:
-                raise NotImplementedError(
-                    "cascade datasets (a previous stage's seg) are not ported yet: ROADMAP M6b")
             if self.augment is not None:
-                data, seg, _ = augment_batch(data, seg, self.augment, rng)
+                data, seg, prev = augment_batch(data, seg, self.augment, rng, prev)
+            if prev is not None:
+                if self.onehot_labels is None:
+                    raise ValueError("a cascade dataset (seg_prev present) needs onehot_labels "
+                                     "on the PatchDataLoader")
+                hot = np.stack([prev == label for label in self.onehot_labels],
+                               axis=1).astype(np.float32)  # (B, F, *sp)
+                if self.cascade_noise:
+                    for b in range(hot.shape[0]):
+                        hot[b] = cascade_onehot_noise(hot[b], rng)
+                data = np.concatenate([data, hot], axis=1)
             batch = {
                 # (B, C, *sp) -> channels-last
                 "data": np.ascontiguousarray(np.moveaxis(data, 1, -1)),
@@ -97,7 +113,7 @@ class PatchDataLoader:
         return self
 
     def __next__(self):
-        # a producer that died (a corrupt case, a cascade dataset) must
+        # a producer that died (a corrupt case, a missing prev-stage file) must
         # surface its exception promptly — checked BEFORE serving the next
         # batch (a surviving second thread can keep the queue non-empty
         # forever, which would bury the error), and polled with a timeout

@@ -48,8 +48,7 @@ def predict_raw_case(
     on the preprocessed grid, appended after normalization/resampling.
     ``prev_onehot_loader``: alternative for callers that cannot know the
     preprocessed grid up front — called with the resampled spatial shape,
-    must return (F, *that_shape). Both are carried for the cascades, which
-    the port's CLI does not serve yet.
+    must return (F, *that_shape); ``predict -prev --raw`` passes this one.
     """
     spacing = list(spacing)
     if transpose_forward:

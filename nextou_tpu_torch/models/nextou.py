@@ -7,7 +7,9 @@ Module tree and names follow upstream NexToU
 with ``load_state_dict`` and ``nextou_tpu.compat.torch_import`` maps this
 model's ``state_dict`` onto ``nextou_tpu`` variables:
 
-    encoder.stages.{s}.0               StackedConvBlocks (conv-only stage)
+    encoder.stem.convs.0               the residual encoder's stem (ConvNormAct)
+    encoder.stages.{s}.0               StackedConvBlocks (conv-only stage), or
+                                       StackedResidualBlocks (``blocks.{b}``)
     encoder.stages.{s}.0.{0,1,2}       StackedConvBlocks, PoolGNNBlocks, SwinGNNBlocks
     decoder.stages.{s}[.{0,1,2}]       the same, one Sequential level less
     decoder.transpconvs.{s}            ConvTranspose (kernel == stride)
@@ -42,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from nextou_tpu_torch.core.pos_embed import relative_pos_bias
 from nextou_tpu_torch.models.spec import GNNBlockSpec, ModelSpec
-from nextou_tpu_torch.nn.conv_blocks import StackedConvBlocks, conv
+from nextou_tpu_torch.nn.conv_blocks import StackedConvBlocks, StackedResidualBlocks, conv
 from nextou_tpu_torch.nn.graphers import FFN, PoolGrapher, SwinGrapher
 from nextou_tpu_torch.plans.planner import compute_conv_feature_map_size
 
@@ -98,8 +100,9 @@ class HybridStage(nn.Sequential):
 
 
 def _stage(n_conv, cin, cout, kernel, stride, gnn, img_shape, spec, table,
-           generator, conv_kernel, device):
-    convs = StackedConvBlocks(
+           generator, conv_kernel, device, residual=False):
+    blocks = StackedResidualBlocks if residual else StackedConvBlocks
+    convs = blocks(
         n_conv, cin, cout, kernel, stride, bias=spec.use_bias, conv_kernel=conv_kernel,
         device=device,
     )
@@ -175,18 +178,27 @@ class Encoder(nn.Module):
                  device=None):
         super().__init__()
         stages, cin = [], spec.in_channels
+        self.stem = None
+        if spec.stem_features is not None:
+            # the residual encoder's stride-1 stem conv block before stage 0
+            self.stem = StackedConvBlocks(
+                1, cin, spec.stem_features, spec.encoder[0].kernel_size,
+                (1,) * spec.spatial_dims, bias=spec.use_bias, conv_kernel=conv_kernel,
+                device=device,
+            )
+            cin = spec.stem_features
         for st in spec.encoder:
-            if st.residual:
-                raise NotImplementedError("residual encoder stages are not ported yet")
             stages.append(nn.Sequential(_stage(
                 st.n_conv, cin, st.features, st.kernel_size, st.stride, st.gnn,
-                st.img_shape, spec, table, generator, conv_kernel, device,
+                st.img_shape, spec, table, generator, conv_kernel, device, st.residual,
             )))
             cin = st.features
         self.stages = nn.ModuleList(stages)
         self.generator = generator
 
     def forward(self, x: torch.Tensor, remat: list[bool]) -> list[torch.Tensor]:
+        if self.stem is not None:
+            x = self.stem(x)
         skips = []
         for stage, again in zip(self.stages, remat):
             if again and torch.is_grad_enabled():
@@ -269,8 +281,6 @@ class NexToU(nn.Module):
     def __init__(self, spec: ModelSpec, *, dtype: torch.dtype = torch.float32,
                  remat=False, conv_kernel: str = "0", device=None):
         super().__init__()
-        if spec.stem_features is not None:
-            raise NotImplementedError("the residual encoder stem is not ported yet")
         self.spec = spec
         self.dtype = dtype
         self.remat = remat_flags(spec, remat)

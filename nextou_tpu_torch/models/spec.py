@@ -43,8 +43,8 @@ class StageSpec:
     n_conv: int
     img_shape: tuple[int, ...]
     gnn: tuple[GNNBlockSpec, ...] = ()
-    # BasicBlockD residual blocks instead of plain conv blocks (n_conv =
-    # n_blocks); used by the JAX package's ResidualEncoderUNet, not ported yet
+    # residual blocks instead of plain conv blocks (n_conv = n_blocks); the
+    # ResidualEncoderUNet's encoder
     residual: bool = False
 
 

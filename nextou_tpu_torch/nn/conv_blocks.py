@@ -1,10 +1,21 @@
-"""Plain conv blocks: upstream ``StackedConvBlocks`` with conv -> BatchNorm ->
-LeakyReLU, counterpart of ``nextou_tpu/nn/conv_blocks.py``.
+"""Conv blocks, counterpart of ``nextou_tpu/nn/conv_blocks.py``: upstream's
+``StackedConvBlocks`` (conv -> BatchNorm -> LeakyReLU) and the residual
+encoder's ``StackedResidualBlocks``.
 
 Channels-first ``(B, C, *spatial)``, the layout cuDNN wants. Padding is the
 explicit symmetric ``(k-1)//2`` torch uses, never "same" (which would pad a
-k=3/stride-2 conv (0, 1) and shift the sampling grid). The residual blocks
-are not on the flagship and are not ported yet.
+k=3/stride-2 conv (0, 1) and shift the sampling grid).
+
+A :class:`ResidualBlock` computes ``act(norm2(conv2(act(norm1(conv1(x))))) +
+skip(x))`` as the JAX package's does: ``conv1`` carries the stride, and
+``skip`` is the identity unless the stride or the width changes, then a
+strided 1x1 conv (no bias) + norm. Upstream's ``BasicBlockD`` average-pools
+and then applies a stride-1 1x1 conv there instead; the port follows the JAX
+package, which it is held against. Names: ``conv1.conv``, ``conv1.norm``,
+``conv2.conv``, ``conv2.norm``, ``skip.conv``, ``skip.norm`` (upstream
+registers its projection as ``skip.1`` behind the pool, ``skip.0`` without
+a stride). ``conv2.norm``'s scale starts at 0 (``utils/init.py``), so every
+block starts as ``act(skip(x))``.
 
 ``conv_kernel`` switches the hand-written conv kernel (``kernels/conv.py``)
 on, the counterpart of the JAX package's ``NEXTOU_PALLAS_CONV`` as an
@@ -65,9 +76,8 @@ def conv(x: torch.Tensor, module: nn.Module, conv_kernel: str = "0") -> torch.Te
     return _CONV_FN[x.dim() - 2](x, w, b, module.stride, module.padding)
 
 
-class ConvNormAct(nn.Module):
-    """conv -> BatchNorm (eps 1e-5, see ``layers.batch_norm``) ->
-    LeakyReLU(0.01); upstream names ``conv`` and ``norm``."""
+class ConvNorm(nn.Module):
+    """conv -> BatchNorm, no activation; upstream names ``conv`` and ``norm``."""
 
     def __init__(
         self, cin: int, cout: int, kernel_size: Sequence[int],
@@ -84,7 +94,57 @@ class ConvNormAct(nn.Module):
         self.norm = _BATCH_NORM[dims](cout, eps=1e-5, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.leaky_relu(batch_norm(self.norm, conv(x, self.conv, self.conv_kernel)), LEAKY_SLOPE)
+        return batch_norm(self.norm, conv(x, self.conv, self.conv_kernel))
+
+
+class ConvNormAct(ConvNorm):
+    """conv -> BatchNorm (eps 1e-5, see ``layers.batch_norm``) ->
+    LeakyReLU(0.01); upstream names ``conv`` and ``norm``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(super().forward(x), LEAKY_SLOPE)
+
+
+class ResidualBlock(nn.Module):
+    """The JAX package's ``ResidualBlock`` (see the module docstring)."""
+
+    def __init__(
+        self, cin: int, cout: int, kernel_size: Sequence[int], stride: Sequence[int], *,
+        bias: bool = True, conv_kernel: str = "0", device=None,
+    ):
+        super().__init__()
+        ones = (1,) * len(kernel_size)
+        kw = dict(bias=bias, conv_kernel=conv_kernel, device=device)
+        self.conv1 = ConvNorm(cin, cout, kernel_size, stride, **kw)
+        self.conv2 = ConvNorm(cout, cout, kernel_size, ones, **kw)
+        self.skip = None
+        if any(s != 1 for s in stride) or cin != cout:
+            self.skip = ConvNorm(cin, cout, ones, stride, bias=False, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv2(F.leaky_relu(self.conv1(x), LEAKY_SLOPE))
+        return F.leaky_relu(y + (x if self.skip is None else self.skip(x)), LEAKY_SLOPE)
+
+
+class StackedResidualBlocks(nn.Module):
+    """``n`` ResidualBlocks under ``blocks``; only the first is strided."""
+
+    def __init__(
+        self, n: int, cin: int, cout: int, kernel_size: Sequence[int],
+        first_stride: Sequence[int], *, bias: bool = True, conv_kernel: str = "0", device=None,
+    ):
+        super().__init__()
+        ones = (1,) * len(kernel_size)
+        self.blocks = nn.Sequential(*[
+            ResidualBlock(
+                cin if i == 0 else cout, cout, kernel_size, first_stride if i == 0 else ones,
+                bias=bias, conv_kernel=conv_kernel, device=device,
+            )
+            for i in range(n)
+        ])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.blocks(x)
 
 
 class StackedConvBlocks(nn.Module):

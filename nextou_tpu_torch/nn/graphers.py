@@ -1,8 +1,9 @@
 """Grapher blocks: FFN, SwinGrapher (windowed local GNN), PoolGrapher
-(global pooled GNN), counterpart of ``nextou_tpu/nn/graphers.py`` (upstream
-``NexToU_Encoder_Decoder.py:368-390,695-933``).
+(global pooled GNN) and the plain Grapher, counterpart of
+``nextou_tpu/nn/graphers.py`` (upstream
+``NexToU_Encoder_Decoder.py:368-390,553-632,695-933``).
 
-All three take and return channels-last maps ``(B, *spatial, C)``. Their
+All four take and return channels-last maps ``(B, *spatial, C)``. Their
 fc1/fc2 are 1x1 convs (matmuls on the channel axis) + BatchNorm. Each
 grapher holds its fixed relative-position kNN bias as the buffer
 ``relative_pos`` ``(1, N, N_reduced)``, upstream's name and shape; the model
@@ -24,7 +25,7 @@ from torch import nn
 
 from nextou_tpu_torch.core.window import window_partition, window_reverse
 from nextou_tpu_torch.nn.graph_conv import DyGraphConv, PoolDyGraphConv
-from nextou_tpu_torch.nn.layers import DropPath, LastDimBatchNorm, PointwiseConv, act
+from nextou_tpu_torch.nn.layers import ActLayer, DropPath, LastDimBatchNorm, PointwiseConv
 
 
 class Fc(nn.Sequential):
@@ -43,13 +44,13 @@ class FFN(nn.Module):
     def __init__(self, channels: int, hidden: int, dims: int, *, act_name: str,
                  drop_path: float = 0.0, generator=None, device=None):
         super().__init__()
-        self.act_name = act_name
         self.fc1 = Fc(channels, hidden, dims, device)
+        self.act = ActLayer(act_name, device=device)
         self.fc2 = Fc(hidden, channels, dims, device)
         self.drop_path = DropPath(drop_path, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.drop_path(self.fc2(act(self.act_name, self.fc1(x)))) + x
+        return self.drop_path(self.fc2(self.act(self.fc1(x)))) + x
 
 
 class SwinGrapher(nn.Module):
@@ -118,4 +119,34 @@ class PoolGrapher(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc2(self.graph_conv(self.fc1(x), self.relative_pos[0]))
+        return self.drop_path(h) + x
+
+
+class Grapher(nn.Module):
+    """The plain grapher: fc1, DyGraphConv over the whole map, fc2, residual
+    (upstream ``:553-632``). NexToU builds only Swin and Pool graphers; this
+    one is kept for ViG-style networks, as the JAX package keeps it. Its
+    graph conv's norm is ``norm``; ``relative_pos`` ``(1, N, N / r^dims)``
+    is optional (``None``: no position bias, the JAX module's default)."""
+
+    def __init__(
+        self, channels: int, relative_pos: torch.Tensor | None = None, *, dims: int,
+        k: int = 9, reduce_ratio: int = 1, groups: int = 1, act_name: str = "leakyrelu",
+        norm: str = "instance", bias: bool = True, drop_path: float = 0.0,
+        generator=None, device=None, **graph,
+    ):
+        super().__init__()
+        self.fc1 = Fc(channels, channels, dims, device)
+        self.graph_conv = DyGraphConv(
+            channels, 2 * channels, dims, k=k, reduce_ratio=reduce_ratio, groups=groups,
+            norm=norm, act_name=act_name, bias=bias, generator=generator, device=device,
+            **graph,
+        )
+        self.fc2 = Fc(2 * channels, channels, dims, device)
+        self.drop_path = DropPath(drop_path, generator)
+        self.register_buffer("relative_pos", relative_pos)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rel = None if self.relative_pos is None else self.relative_pos[0]
+        h = self.fc2(self.graph_conv(self.fc1(x), rel))
         return self.drop_path(h) + x

@@ -24,7 +24,8 @@ LEAKY_SLOPE = 1e-2
 
 
 def act(name: str, x: torch.Tensor) -> torch.Tensor:
-    """Activation by name (upstream ``torch_nn.py:13-29``, minus 'prelu')."""
+    """Activation by name (upstream ``torch_nn.py:13-29``). 'prelu' is
+    parametric and lives in :class:`PReLU` / :class:`ActLayer` only."""
     name = name.lower()
     if name == "relu":
         return F.relu(x)
@@ -34,7 +35,9 @@ def act(name: str, x: torch.Tensor) -> torch.Tensor:
         return F.gelu(x)
     if name == "hswish":
         return F.hardswish(x)
-    raise NotImplementedError(f"activation [{name}] is not ported")
+    if name == "prelu":
+        raise NotImplementedError("prelu is parametric: use ActLayer/PReLU (module form)")
+    raise NotImplementedError(f"activation [{name}] is not found")
 
 
 class Act(nn.Module):
@@ -46,6 +49,33 @@ class Act(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return act(self.name, x)
+
+
+class PReLU(nn.Module):
+    """Parametric ReLU with ``torch.nn.PReLU(num_parameters, init)``
+    semantics (upstream ``torch_nn.py:21-22``): ``max(0, x) + weight *
+    min(0, x)``, ``weight`` (f32, ``num_parameters`` entries) broadcast over
+    the channel axis, which is the last one here (channels-last nodes).
+    ``init`` is the slope it starts at; ``utils/init.py`` keeps it."""
+
+    def __init__(self, num_parameters: int = 1, init: float = LEAKY_SLOPE, device=None):
+        super().__init__()
+        self.init = init
+        self.weight = nn.Parameter(torch.full((num_parameters,), init, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.numel() > 1 and x.shape[-1] != self.weight.numel():
+            raise ValueError(f"PReLU of {self.weight.numel()} slopes on {x.shape[-1]} channels")
+        a = self.weight.to(x.dtype)
+        return torch.clamp_min(x, 0) + a * torch.clamp_max(x, 0)
+
+
+def ActLayer(name: str, neg_slope: float = LEAKY_SLOPE, n_prelu: int = 1, device=None) -> nn.Module:
+    """Module-form activation (upstream ``act_layer``, ``torch_nn.py:13-29``):
+    :class:`PReLU` for 'prelu', else :class:`Act`."""
+    if name.lower() == "prelu":
+        return PReLU(n_prelu, neg_slope, device=device)
+    return Act(name)
 
 
 class PointwiseConv(nn.Module):
@@ -181,5 +211,5 @@ class GroupedMLP(nn.Sequential):
         super().__init__(
             PointwiseConv(cin, cout, dims, groups=groups, bias=bias, device=device),
             make_norm(norm, cout, device=device),
-            Act(act_name),
+            ActLayer(act_name, device=device),
         )

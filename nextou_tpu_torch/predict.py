@@ -1,10 +1,12 @@
-"""CLI + API: predict preprocessed or raw cases with NexToU checkpoints.
+"""CLI + API: predict preprocessed or raw cases with trained checkpoints.
 
 Counterpart of ``nextou_tpu/predict.py``: the plans configuration gives the
-network (built the way the trainers build it), the trainer name gives the
-TTA mirror axes, and each case goes through the Gaussian sliding window,
-its accumulators on the device while they fit ``ACC_BUDGET_BYTES`` and in
-host memory above it (every forward runs on the device either way). ``-f``
+network, built as the trainer named builds it (NexToU under the seven NexToU
+trainers, the plans' ``UNet_class_name`` under ``nnUNetTrainer``), the
+trainer name gives the TTA mirror axes, and each case goes through the
+Gaussian sliding window, its accumulators on the device while they fit
+``ACC_BUDGET_BYTES`` and in host memory above it (every forward runs on the
+device either way). ``-f``
 averages several folds' probabilities. A preprocessed case's ``{case}.npz``
 gets ``seg`` (and with ``--save-probabilities`` its ``probabilities``,
 float16); with ``--raw`` a folder of raw images (``{case}_0000.nii.gz``) goes
@@ -13,21 +15,24 @@ through crop, normalization and resampling to the plans' spacing and back
 
     python -m nextou_tpu_torch.predict MODEL_FOLDER DATASET_FOLDER CONFIGURATION \\
         -o OUTPUT [--raw] [-f 0 1 ...] [-tr nnUNetTrainer_NexToU]
-        [-chk checkpoint_final.pth] [--save-probabilities] [-pp postprocessing.json]
-        [--conv-kernel {0,1,s1,s2}] [--device cpu]
+        [-chk checkpoint_final.pth] [-prev PREV_FOLDER] [--save-probabilities]
+        [-pp postprocessing.json] [--conv-kernel {0,1,s1,s2}] [--device cpu]
 
 With ``--raw`` the plans (``plans.json``) and ``dataset.json`` are read from
 the model folder, where the trainer writes them. The checkpoint is a torch
-file holding ``{'network_weights': state_dict}`` under upstream NexToU's
-parameter names, the layout of upstream nnU-Net checkpoints; their
-DDP/compile prefixes and alias keys are stripped
-(:func:`~nextou_tpu_torch.compat.weights.extract_network_weights`). Computes
-in bf16 on a CUDA device, which is where it runs unless ``--device cpu`` asks
-for the CPU (f32): without a card and without that option it fails.
+file holding ``{'network_weights': state_dict}`` under upstream's parameter
+names, the layout of upstream nnU-Net checkpoints; their DDP/compile prefixes
+and alias keys are stripped
+(:func:`~nextou_tpu_torch.compat.weights.extract_network_weights`), or a
+``nextou_tpu`` ``.ckpt``, read without jax, flax or msgpack
+(:mod:`~nextou_tpu_torch.compat.flax_ckpt`). A cascade configuration takes
+the previous stage's segmentations with ``-prev`` (``{case}.npz`` with
+``seg``, on this configuration's grid or resampled onto it by order 0) as
+one-hot foreground channels. Computes in bf16 on a CUDA device, which is
+where it runs unless ``--device cpu`` asks for the CPU (f32): without a card
+and without that option it fails.
 
-Not ported yet: cascades (``-prev``), ``--all-devices``, the networks other
-than NexToU that plans can name, and loading a ``nextou_tpu`` (flax msgpack)
-checkpoint.
+Not ported yet: ``--all-devices``.
 """
 
 from __future__ import annotations
@@ -41,8 +46,10 @@ from typing import Callable, Iterator, Sequence
 import numpy as np
 import torch
 
-from nextou_tpu_torch.compat.weights import extract_network_weights
+from nextou_tpu_torch.compat.flax_ckpt import read_ckpt
+from nextou_tpu_torch.compat.weights import extract_network_weights, variables_to_state_dict
 from nextou_tpu_torch.data.dataset import PreprocessedDataset
+from nextou_tpu_torch.data.preprocessing import resample_to_shape
 from nextou_tpu_torch.infer.raw import predict_raw_folder
 from nextou_tpu_torch.infer.sliding_window import (
     make_device_sliding_predictor,
@@ -50,15 +57,18 @@ from nextou_tpu_torch.infer.sliding_window import (
     sliding_window_predict,
 )
 from nextou_tpu_torch.models.nextou import NexToU
-from nextou_tpu_torch.models.spec import ModelSpec, build_model_spec
+from nextou_tpu_torch.models.plans_network import plans_network_spec
+from nextou_tpu_torch.models.spec import ModelSpec
 from nextou_tpu_torch.nn.conv_blocks import CONV_KERNEL_MODES
 from nextou_tpu_torch.paths import resolve_preprocessed, resolve_raw
 from nextou_tpu_torch.postprocess import apply_postprocessing
 from nextou_tpu_torch.plans.loader import PlansManager, load_dataset_json
 
-# the seven public NexToU trainer names; the _NoMirroring ones predict
-# without mirror TTA (upstream nnUNetTrainer_NexToU_NoMirroring.py:8-9)
+# the seven public NexToU trainer names and nnUNetTrainer (the network the
+# plans name); the _NoMirroring ones predict without mirror TTA (upstream
+# nnUNetTrainer_NexToU_NoMirroring.py:8-9)
 TRAINERS = (
+    "nnUNetTrainer",
     "nnUNetTrainer_NexToU",
     "nnUNetTrainer_NexToU_NoMirroring",
     "nnUNetTrainer_NexToU_TI",
@@ -81,25 +91,22 @@ def mirror_axes_for(trainer: str, spatial_dims: int) -> tuple[int, ...] | None:
     return None if trainer.endswith("_NoMirroring") else tuple(range(spatial_dims))
 
 
-def build_spec(plans: PlansManager, configuration: str, dataset_json: dict) -> ModelSpec:
-    """The inference NexToU spec (deep supervision off) of a plans
-    configuration, built like ``nextou_tpu/train/trainer.py::build_network_spec``."""
+def build_spec(plans: PlansManager, configuration: str, dataset_json: dict,
+               trainer: str = "nnUNetTrainer_NexToU") -> ModelSpec:
+    """The inference spec (deep supervision off) of the network ``trainer``
+    builds for a plans configuration (``train/trainer.py::build_network_spec``):
+    NexToU, or under ``nnUNetTrainer`` the plans' ``UNet_class_name``. A
+    cascade stage's inputs include the previous stage's one-hot foreground
+    channels."""
+    if trainer not in TRAINERS:
+        raise ValueError(f"unknown trainer {trainer!r}; known: {TRAINERS}")
     cm = plans.get_configuration(configuration)
-    if cm.previous_stage_name is not None:
-        raise NotImplementedError("cascade configurations are not ported yet")
+    labels = plans.get_label_manager(dataset_json)
     channels = dataset_json.get("channel_names") or dataset_json.get("modality", {"0": "X"})
-    return build_model_spec(
-        in_channels=max(1, len(channels)),
-        patch_size=cm.patch_size,
-        n_stages=cm.num_stages,
-        features_per_stage=cm.features_per_stage(),
-        kernel_sizes=cm.conv_kernel_sizes,
-        strides=cm.pool_op_kernel_sizes,
-        n_conv_per_stage=cm.n_conv_per_stage_encoder,
-        n_conv_per_stage_decoder=cm.n_conv_per_stage_decoder,
-        num_classes=plans.get_label_manager(dataset_json).num_segmentation_heads,
-        deep_supervision=False,
-    )
+    prev = len(labels.foreground_labels) if cm.previous_stage_name is not None else 0
+    return plans_network_spec(
+        cm, max(1, len(channels)) + prev, labels.num_segmentation_heads, False,
+        nextou=trainer != "nnUNetTrainer")
 
 
 def compute_dtype(device: torch.device) -> torch.dtype:
@@ -108,19 +115,44 @@ def compute_dtype(device: torch.device) -> torch.dtype:
 
 def load_model(spec: ModelSpec, checkpoint: str, device: torch.device,
                conv_kernel: str = "0") -> NexToU:
-    """Build the network on ``device`` and load ``checkpoint``'s weights;
+    """Build the network on ``device`` and load ``checkpoint``'s weights, a
+    torch checkpoint or, by its ``.ckpt`` suffix, a ``nextou_tpu`` one;
     ``conv_kernel`` as :class:`~nextou_tpu_torch.models.nextou.NexToU` takes it."""
     model = NexToU(spec, dtype=compute_dtype(device), conv_kernel=conv_kernel, device=device)
-    ckpt = torch.load(checkpoint, map_location=device, weights_only=True)
-    model.load_state_dict(extract_network_weights(ckpt))
+    if checkpoint.endswith(".ckpt"):
+        model.load_state_dict(variables_to_state_dict(read_ckpt(checkpoint)[0], spec))
+    else:
+        ckpt = torch.load(checkpoint, map_location=device, weights_only=True)
+        model.load_state_dict(extract_network_weights(ckpt))
     return model.eval()
 
 
-def load_dataset(dataset_folder: str, configuration: str) -> tuple[PlansManager, dict, ModelSpec]:
+def load_dataset(dataset_folder: str, configuration: str, trainer: str = "nnUNetTrainer_NexToU"
+                 ) -> tuple[PlansManager, dict, ModelSpec]:
     """``(plans, dataset_json, inference spec)`` of a preprocessed dataset folder."""
     plans = PlansManager(os.path.join(dataset_folder, "nnUNetPlans.json"))
     dataset_json = load_dataset_json(dataset_folder)
-    return plans, dataset_json, build_spec(plans, configuration, dataset_json)
+    return plans, dataset_json, build_spec(plans, configuration, dataset_json, trainer)
+
+
+def onehot_channels(seg: np.ndarray, labels: Sequence[int]) -> np.ndarray:
+    """A previous stage's segmentation ``(*sp)`` as the cascade's one-hot
+    foreground channels ``(*sp, len(labels))`` f32."""
+    return np.stack([seg == label for label in labels], axis=-1).astype(np.float32)
+
+
+def load_prev_stage(folder: str, cid: str, shape: Sequence[int]) -> np.ndarray:
+    """Case ``cid``'s previous-stage segmentation from ``folder``, on a grid of
+    ``shape``: resampled by order 0 where it lies on another one (``predict``
+    writes on the previous stage's grid, ``predict_next_stage`` on the next
+    one's)."""
+    with np.load(os.path.join(folder, f"{cid}.npz")) as z:
+        prev = z["seg"]
+    if prev.ndim == len(shape) + 1:
+        prev = np.squeeze(prev, 0)
+    if tuple(prev.shape) != tuple(shape):
+        prev = resample_to_shape(prev.astype(np.float32), shape, order=0).astype(np.int32)
+    return prev
 
 
 def iter_cases(
@@ -270,7 +302,12 @@ def main(argv=None):
     ap.add_argument("-f", "--folds", nargs="*", default=None,
                     help="average these folds' probabilities; the model folder ends in "
                     "fold_N (siblings) or holds fold_N subfolders")
-    ap.add_argument("-chk", default="checkpoint_final.pth")
+    ap.add_argument("-chk", default="checkpoint_final.pth",
+                    help="checkpoint file in each model folder: a torch .pth or a nextou_tpu "
+                    ".ckpt")
+    ap.add_argument("-prev", "--prev-stage-predictions", default=None,
+                    help="cascade: folder of the previous stage's {case}.npz segmentations "
+                    "(from predict_next_stage or predict)")
     ap.add_argument("-o", "--output", required=True)
     ap.add_argument("--cases", nargs="*", default=None)
     ap.add_argument("--tile-batch", type=int, default=2)
@@ -305,11 +342,17 @@ def main(argv=None):
         dataset_folder = resolve_raw(args.dataset_folder)
         plans = PlansManager(os.path.join(args.model_folder, "plans.json"))
         dataset_json = load_dataset_json(args.model_folder)
-        spec = build_spec(plans, args.configuration, dataset_json)
+        spec = build_spec(plans, args.configuration, dataset_json, args.trainer)
     else:
         dataset_folder = resolve_preprocessed(args.dataset_folder)
-        plans, dataset_json, spec = load_dataset(dataset_folder, args.configuration)
+        plans, dataset_json, spec = load_dataset(dataset_folder, args.configuration, args.trainer)
     labels = plans.get_label_manager(dataset_json)
+    prev_folder = None
+    if plans.get_configuration(args.configuration).previous_stage_name is not None:
+        if args.prev_stage_predictions is None:
+            raise SystemExit(f"configuration '{args.configuration}' is a cascade stage: pass "
+                             "-prev with the previous stage's predictions")
+        prev_folder = args.prev_stage_predictions
     mirror = mirror_axes_for(args.trainer, spec.spatial_dims)
     folders = _fold_model_folders(args.model_folder, args.folds) if args.folds else [
         args.model_folder]
@@ -325,10 +368,17 @@ def main(argv=None):
         activation="sigmoid" if regions else "softmax",
     )
     if args.raw:
+        prev_seg_loader = None
+        if prev_folder is not None:
+            def prev_seg_loader(cid, shape):
+                # channels first, on this case's preprocessed grid
+                hot = onehot_channels(load_prev_stage(prev_folder, cid, shape),
+                                      labels.foreground_labels)
+                return np.moveaxis(hot, -1, 0)
         predict_raw_folder(
             predictor, dataset_folder, args.output, plans,
             plans.get_configuration(args.configuration), dataset_json,
-            cases=args.cases, postprocess=postprocess,
+            cases=args.cases, prev_seg_loader=prev_seg_loader, postprocess=postprocess,
         )
         return
 
@@ -336,6 +386,9 @@ def main(argv=None):
     with open(os.path.join(args.output, "dataset.json"), "w") as f:
         json.dump(dataset_json, f)  # label semantics for the ensemble and evaluation
     for cid, data in iter_cases(dataset_folder, plans, args.configuration, args.cases):
+        if prev_folder is not None:
+            prev = load_prev_stage(prev_folder, cid, data.shape[:-1])
+            data = np.concatenate([data, onehot_channels(prev, labels.foreground_labels)], -1)
         out = predictor(data)
         seg = out if want_seg else labels.convert_probabilities_to_segmentation(out)
         if postprocess is not None:

@@ -45,7 +45,8 @@ def main(argv=None):
     ap.add_argument("--npz", action="store_true",
                     help="save each validation case's probabilities in validation/{case}.npz")
     ap.add_argument("-pretrained_weights", "--pretrained-weights", default=None, metavar="CKPT",
-                    help="seed the network with another run's checkpoint before training "
+                    help="seed the network with another run's checkpoint (a .pth, or a "
+                         "nextou_tpu .ckpt) before training "
                          "(momentum and generator stay fresh; tensors of another shape keep "
                          "their initialization)")
     ap.add_argument("--device-da", choices=["auto", "on", "off"], default="auto",

@@ -9,8 +9,10 @@ weights_only=True)``), the optimizer's momentum and step under
 entries (epoch, EMA pseudo-Dice, best EMA, the per-epoch history) as plain
 Python values. Everything in it loads with ``weights_only=True``.
 
-Loading a ``nextou_tpu`` (flax msgpack) ``.ckpt`` is not ported yet
-(ROADMAP M6b).
+A ``nextou_tpu`` ``.ckpt`` (flax msgpack in a pickle) seeds
+``-pretrained_weights`` too, read by :mod:`nextou_tpu_torch.compat.flax_ckpt`
+without jax, flax or msgpack. Resuming a training (``--c``) from one is not
+supported: the optimizer state's layout (optax's) is not the port's.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from typing import Any
 
 import torch
 
-from nextou_tpu_torch.compat.weights import extract_network_weights
+from nextou_tpu_torch.compat.flax_ckpt import read_ckpt
+from nextou_tpu_torch.compat.weights import extract_network_weights, variables_to_state_dict
 from nextou_tpu_torch.train.state import TrainState
 
 
@@ -56,19 +59,31 @@ def load_checkpoint(path: str, state: TrainState) -> tuple[TrainState, dict]:
 def restore_pretrained(state: TrainState, path: str) -> tuple[TrainState, dict]:
     """``nnUNetv2_train -pretrained_weights``: seed a fresh training with the
     network weights of another run (a checkpoint of this port or of upstream
-    nnU-Net). Every entry of the model's ``state_dict`` (parameters,
-    BatchNorm statistics, the position tables) whose name exists in both
-    with the same shape is copied; the others keep their fresh values, and
-    momentum, step and generator stay as they are.
+    nnU-Net, or a ``nextou_tpu`` ``.ckpt``). Every entry of the model's
+    ``state_dict`` (parameters, BatchNorm statistics, the position tables)
+    whose name exists in both with the same shape is copied; the others keep
+    their fresh values, and momentum, step and generator stay as they are.
+
+    From a ``.ckpt`` the entries are those of its ``params`` and
+    ``batch_stats``, as ``nextou_tpu/train/checkpoint.py::restore_pretrained``
+    takes them: the position tables and BatchNorm's ``num_batches_tracked``
+    stay out of the report, so that it counts what the JAX package's counts.
 
     Returns ``(state, report)`` with report = {'loaded': [...],
     'skipped_shape': [...], 'missing': [...]}.
     """
     device = next(state.model.parameters()).device
-    src = extract_network_weights(torch.load(path, map_location=device, weights_only=True))
+    own = state.model.state_dict()
+    if path.endswith(".ckpt"):
+        src = variables_to_state_dict(read_ckpt(path)[0], state.model.spec, lenient=True)
+        # every other entry maps from a params or batch_stats leaf
+        own = {k: v for k, v in own.items()
+               if not k.endswith((".num_batches_tracked", "relative_pos"))}
+    else:
+        src = extract_network_weights(torch.load(path, map_location=device, weights_only=True))
     report = {"loaded": [], "skipped_shape": [], "missing": []}
     with torch.no_grad():
-        for name, have in state.model.state_dict().items():
+        for name, have in own.items():
             new = src.get(name)
             if new is None:
                 report["missing"].append(name)

@@ -10,7 +10,12 @@ foreground oversampling, EMA (0.9) pseudo-Dice model selection,
 prediction of the validation cases and ``validation/summary.json``).
 
 The architecture is NexToU whatever the plans' ``UNet_class_name`` says, as
-in the reference trainer (``nnUNetTrainer_NexToU.py:31``).
+in the reference trainer (``nnUNetTrainer_NexToU.py:31``); ``nnUNetTrainer``
+(``trainers.py``) builds the class the plans name instead. A cascade
+configuration (one with a ``previous_stage``) reads the previous stage's
+predictions from ``<preprocessed>/predicted_next_stage/<previous stage>/``
+(``predict_next_stage``) and takes them as one-hot foreground channels after
+the image's, perturbed in training (``data/loader.py``).
 
 It runs on one ``device``, the card unless the caller asks for the CPU,
 computing in bf16 there (f32 on the CPU) with f32 parameters. The host
@@ -19,8 +24,8 @@ trains; losses and the pseudo-Dice statistics stay on the device and are
 read once per epoch.
 
 Not ported yet, each raising ``NotImplementedError``: on-device augmentation
-(``device_da=True``, ROADMAP M9; ``"auto"`` resolves to off), data-parallel
-training over several processes (M10), cascade configurations (M6b).
+(``device_da=True``, ROADMAP M9; ``"auto"`` resolves to off) and
+data-parallel training over several processes (M10).
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ from nextou_tpu_torch.data import (
 )
 from nextou_tpu_torch.losses import CompoundLossSpec, deep_supervision_weights
 from nextou_tpu_torch.models import NexToU
-from nextou_tpu_torch.models.spec import build_model_spec
+from nextou_tpu_torch.models.plans_network import plans_network_spec
+from nextou_tpu_torch.nn.conv_blocks import check_conv_kernel
 from nextou_tpu_torch.plans import PlansManager
 from nextou_tpu_torch.predict import compute_dtype
 from nextou_tpu_torch.train.checkpoint import load_checkpoint, restore_pretrained, save_checkpoint
@@ -112,6 +118,7 @@ class NexToUTrainer:
         num_iterations_per_epoch: int | None = None,
         batch_size: int | None = None,
         loader_threads: int = 2,
+        conv_kernel: str = "0",
     ):
         self.plans_manager = PlansManager(plans)
         self.configuration_name = configuration
@@ -129,6 +136,8 @@ class NexToUTrainer:
         # producer threads of the host loader (nnUNet_n_proc_DA's role); 1
         # makes the batch order a function of the seed alone
         self.loader_threads = loader_threads
+        # the convs the hand-written conv kernel takes (nn/conv_blocks.py)
+        self.conv_kernel = check_conv_kernel(conv_kernel)
         if num_epochs is not None:
             self.num_epochs = num_epochs
         if num_iterations_per_epoch is not None:
@@ -198,29 +207,34 @@ class NexToUTrainer:
         )
 
     def build_network_spec(self):
-        cm = self.configuration_manager
-        return build_model_spec(
-            in_channels=self._num_input_channels(),
-            patch_size=cm.patch_size,
-            n_stages=cm.num_stages,
-            features_per_stage=cm.features_per_stage(),
-            kernel_sizes=cm.conv_kernel_sizes,
-            strides=cm.pool_op_kernel_sizes,
-            n_conv_per_stage=cm.n_conv_per_stage_encoder,
-            n_conv_per_stage_decoder=cm.n_conv_per_stage_decoder,
-            num_classes=self.label_manager.num_segmentation_heads,
-            deep_supervision=self.enable_deep_supervision,
-        )
+        return plans_network_spec(
+            self.configuration_manager, self._num_input_channels(),
+            self.label_manager.num_segmentation_heads, self.enable_deep_supervision,
+            nextou=True)
 
     def _num_input_channels(self) -> int:
         ch = self.dataset_json.get("channel_names") or self.dataset_json.get("modality", {"0": "X"})
-        return max(1, len(ch))
+        # a cascade stage takes the previous stage's prediction as one-hot
+        # foreground channels (nnU-Net's determine_num_input_channels)
+        prev = len(self.label_manager.foreground_labels) if self._cascade() else 0
+        return max(1, len(ch)) + prev
+
+    def _cascade(self) -> bool:
+        return self.configuration_manager.previous_stage_name is not None
+
+    def _prev_stage_folder(self) -> str | None:
+        prev = self.configuration_manager.previous_stage_name
+        if prev is None:
+            return None
+        folder = os.path.join(self.preprocessed_folder, "predicted_next_stage", prev)
+        if not os.path.isdir(folder):
+            raise FileNotFoundError(
+                f"cascade configuration '{self.configuration_name}' needs previous-stage "
+                f"predictions at {folder} — run `python -m nextou_tpu_torch.predict_next_stage` "
+                f"on the '{prev}' model first")
+        return folder
 
     def _check_ported(self) -> None:
-        if self.configuration_manager.previous_stage_name is not None:
-            raise NotImplementedError(
-                f"cascade configuration '{self.configuration_name}': cascades are not ported "
-                "yet (ROADMAP M6b)")
         if torch.distributed.is_available() and torch.distributed.is_initialized() \
                 and torch.distributed.get_world_size() > 1:
             raise NotImplementedError(
@@ -245,7 +259,7 @@ class NexToUTrainer:
                 f"auto remat: {self.remat!r} (activation estimate {estimate / 2**30:.2f} GiB; "
                 f"{reason})")
         self.network = NexToU(self.model_spec, dtype=self.compute_dtype, remat=self.remat,
-                              device=self.device)
+                              conv_kernel=self.conv_kernel, device=self.device)
         self.loss_spec = self._loss_spec()
         n_ds = len(self.model_spec.decoder)
         self.ds_weights = deep_supervision_weights(n_ds) if self.enable_deep_supervision else None
@@ -277,7 +291,7 @@ class NexToUTrainer:
         ident = self.configuration_manager.data_identifier
         if ident and os.path.isdir(os.path.join(data_dir, ident)):
             data_dir = os.path.join(data_dir, ident)
-        dataset = PreprocessedDataset(data_dir)
+        dataset = PreprocessedDataset(data_dir, prev_stage_folder=self._prev_stage_folder())
         if self.fold == "all":
             return dataset, dataset
         splits_path = os.path.join(self.preprocessed_folder, "splits_final.json")
@@ -304,10 +318,12 @@ class NexToUTrainer:
                                      self.oversample_foreground_percent, seed=self.seed)
         val_sampler = PatchSampler(val_ds, patch, self.batch_size,
                                    self.oversample_foreground_percent, seed=self.seed + 1)
+        onehot = tuple(self.label_manager.foreground_labels) if self._cascade() else None
         train_loader = PatchDataLoader(train_sampler, augment=aug, seed=self.seed,
-                                       num_threads=self.loader_threads)
+                                       num_threads=self.loader_threads, onehot_labels=onehot,
+                                       cascade_noise=self._cascade())
         val_loader = PatchDataLoader(val_sampler, augment=None, seed=self.seed + 7,
-                                     num_threads=self.loader_threads)
+                                     num_threads=self.loader_threads, onehot_labels=onehot)
         return train_loader, val_loader
 
     # ------------------------------------------------------------------ #
@@ -478,7 +494,8 @@ class NexToUTrainer:
         from nextou_tpu_torch.predict import build_predictor
 
         spec = dataclasses.replace(self.model_spec, deep_supervision=False)
-        model = NexToU(spec, dtype=self.compute_dtype, device=self.device)
+        model = NexToU(spec, dtype=self.compute_dtype, conv_kernel=self.conv_kernel,
+                       device=self.device)
         model.load_state_dict(self.network.state_dict())
         regions = self.label_manager.has_regions
         return build_predictor(
@@ -491,8 +508,10 @@ class NexToUTrainer:
         metrics written to ``<output>/validation/summary.json``. Each case's
         segmentation is stored as ``validation/{case}.npz`` ('seg', int16),
         with ``save_probabilities`` (the ``--npz`` flag) also its
-        probabilities ('probabilities', float16, (*sp, C))."""
+        probabilities ('probabilities', float16, (*sp, C)). A cascade stage
+        takes each case's previous-stage prediction as its ``-prev`` channels."""
         from nextou_tpu_torch.infer.evaluate import evaluate_cases
+        from nextou_tpu_torch.predict import onehot_channels
 
         self.initialize()
         _, val_ds = self.get_split()
@@ -503,7 +522,11 @@ class NexToUTrainer:
         cases = []
         for cid in val_ds.case_ids:
             case = val_ds.load(cid)
-            probs = predictor(np.moveaxis(case.data, 0, -1))
+            data = np.moveaxis(case.data, 0, -1)
+            if case.seg_prev is not None:  # a cascade stage: the -prev channels
+                data = np.concatenate([data, onehot_channels(case.seg_prev, lm.foreground_labels)],
+                                      axis=-1)
+            probs = predictor(data)
             seg = lm.convert_probabilities_to_segmentation(probs)
             payload = {"seg": np.asarray(seg, np.int16)}
             if save_probabilities:

@@ -12,6 +12,9 @@ reference does:
 - ``nnUNetTrainer_NexToU_BTI_RAVIR``     + BTI, RAVIR [[1, 2]]
 - ``nnUNetTrainer_NexToU_BTI_ICA_NoMirroring``  + BTI, 18-artery tree, no mirror
 
+and ``nnUNetTrainer``, which builds the network the plans name
+(PlainConvUNet or ResidualEncoderUNet) instead of NexToU.
+
 λ_ti = 1e-6 (3D) / 1e-4 (2D), connectivity 26 / 8, min_thick 1
 (``nnUNetTrainer_NexToU_TI.py:40-45``).
 """
@@ -22,6 +25,7 @@ from itertools import combinations
 
 from nextou_tpu_torch.losses import CompoundLossSpec, TILossSpec
 from nextou_tpu_torch.train.registry import register_trainer
+from nextou_tpu_torch.models.plans_network import plans_network_spec
 from nextou_tpu_torch.train.trainer import NexToUTrainer
 
 
@@ -34,14 +38,18 @@ class nnUNetTrainer_NexToU(NexToUTrainer):
 @register_trainer
 class nnUNetTrainer(NexToUTrainer):
     """Vanilla nnU-Net trainer: builds the architecture the plans name
-    (PlainConvUNet or ResidualEncoderUNet) instead of forcing NexToU. It
-    registers under its name, but building its network raises until the
-    plain and residual U-Nets are ported (ROADMAP M6b)."""
+    (PlainConvUNet or ResidualEncoderUNet, whose ``n_blocks_per_stage`` are
+    the plans' ``n_conv_per_stage_encoder``) instead of forcing NexToU as the
+    reference trainer does (``nnUNetTrainer_NexToU.py:31``). Needed for the
+    plain configurations the planner writes, among them the cascade's
+    ``3d_lowres`` first stage, whose 32/320 widths do not meet NexToU's
+    divisibility rule."""
 
     def build_network_spec(self):
-        raise NotImplementedError(
-            f"nnUNetTrainer builds the plans' {self.configuration_manager.UNet_class_name}: the "
-            "plain and residual U-Nets are not ported yet (ROADMAP M6b)")
+        return plans_network_spec(
+            self.configuration_manager, self._num_input_channels(),
+            self.label_manager.num_segmentation_heads, self.enable_deep_supervision,
+            nextou=False)
 
 
 class _NoMirroringMixin:

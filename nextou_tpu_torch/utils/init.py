@@ -5,7 +5,11 @@
   normal, ``std = sqrt(2 / (1 + 0.01^2) / fan_in)`` with torch's fan-in,
   ``weight.shape[1] * prod(kernel)`` (for a ConvTranspose that is
   ``C_out * prod(k)``, as upstream's kaiming_normal_ computes it);
-- biases 0, norm scales 1, BatchNorm running mean/var 0/1;
+- biases 0, norm scales 1, BatchNorm running mean/var 0/1; the scale of a
+  residual block's last norm (``conv2.norm``) 0, so that the block starts
+  as ``act(skip(x))`` (``init_last_bn_before_add_to_0``);
+- a PReLU's slopes its ``init`` (1e-2 by default, as ``fast_init`` sets
+  ``alpha``);
 - relative-position tables are left as the model built them.
 
 Draws come from ``numpy.random.default_rng(seed)`` in parameter order, so a
@@ -21,7 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from nextou_tpu_torch.nn.layers import HE_GAIN_SQ
+from nextou_tpu_torch.nn.conv_blocks import ResidualBlock
+from nextou_tpu_torch.nn.layers import HE_GAIN_SQ, PReLU
 
 
 @torch.no_grad()
@@ -41,4 +46,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             b.zero_()
         elif name.endswith("running_var"):
             b.fill_(1.0)
+    for m in model.modules():
+        if isinstance(m, ResidualBlock):
+            m.conv2.norm.weight.zero_()
+        elif isinstance(m, PReLU):
+            m.weight.fill_(m.init)
     return model

@@ -45,6 +45,15 @@ NARROW_CONVS = [
     ("d1b", 12, 12, (1, 1, 1), (64, 112, 96)),
 ]
 
+# the convs K5 takes in the planner's 3d_lowres PlainConvUNet (96 x 160 x 160,
+# widths 32 / 64; e0a on the one input channel) and in the 3d_fullres
+# ResidualEncoderUNet (its stage-1 conv1), as the smoke run's phase 18 runs them
+LOWRES_CONVS = [
+    ("e0a", 1, 32, (1, 1, 1), (96, 160, 160)), ("e0b", 32, 32, (1, 1, 1), (96, 160, 160)),
+    ("e1a", 32, 64, (2, 2, 2), (96, 160, 160)), ("d0a", 64, 32, (1, 1, 1), (96, 160, 160)),
+    ("d0b", 32, 32, (1, 1, 1), (96, 160, 160)), ("r1", 32, 64, (1, 2, 2), (56, 192, 160)),
+]
+
 # (layout, B, C, (D, H, W), Co, kernel, stride)
 PLAN_SHAPES = (
     [("ncdhw", B, C, sp, Co, (3, 3, 3), st) for B in (1, 4) for _, sp, C, Co, st in FLAGSHIP_SHAPES]
@@ -63,6 +72,8 @@ PLAN_SHAPES = (
     # the narrow network of the smoke run's phase 10 (the flagship's geometry at
     # widths 6 / 12), which must keep one tap per k16 step
     + [("ncdhw", 2, C, sp, Co, (3, 3, 3), st) for _, C, Co, st, sp in NARROW_CONVS]
+    + [("ncdhw", B, C, sp, Co, (3, 3, 3), st) for B in (1, 2, 4)
+       for _, C, Co, st, sp in LOWRES_CONVS]
 )
 
 
@@ -122,7 +133,8 @@ def test_plan_fits_and_covers_once(layout, B, C, spatial, Co, kernel, stride):
     assert plan["k_steps"] * 2 == len(slots) < plan["granules"] + 2 * plan["chunks"]
 
 
-@pytest.mark.parametrize("name,C,Co,stride,spatial", NARROW_CONVS)
+@pytest.mark.parametrize("name,C,Co,stride,spatial",
+                         NARROW_CONVS + [c for c in LOWRES_CONVS if c[1] <= 16])
 def test_narrow_convs_take_one_chunk_of_one_tap_steps(name, C, Co, stride, spatial):
     """At C <= 32 the plan takes one chunk of 16 channels a tap where its ring
     has two stages: the k order of the library conv, which the smoke run's
@@ -192,6 +204,8 @@ EMULATION_CASES = [
     (1, 20, (3, 6, 12), 324, (3, 1, 3), (2, 1, 2)),
     (1, 40, (3, 6, 64), 168, (3, 3, 3), (2, 2, 2)),  # a block of 2 rows, not 4
     (1, 24, (3, 5, 40), 132, (3, 3, 3), (1, 1, 1)),  # C <= 32, chunks of 8
+    (2, 1, (4, 6, 40), 32, (3, 3, 3), (1, 1, 1)),  # one input channel, padded to 16
+    (1, 1, (4, 7, 34), 32, (3, 3, 3), (2, 2, 2)),
 ]
 
 

@@ -641,3 +641,96 @@ def test_host_accumulation_matches_the_device_path_on_gpu(monkeypatch):
     assert host_p.shape == dev_p.shape == (*data.shape[:-1], spec.num_classes)
     np.testing.assert_allclose(host_p, dev_p, atol=1e-5, rtol=0)
     assert np.mean(np.argmax(host_p, -1) == np.argmax(dev_p, -1)) >= 0.999
+
+
+# --- the plain and residual U-Nets, one input channel, the plain Grapher ---------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_one_input_channel_matches_plain_on_gpu(dtype):
+    """K5 at C = 1 (a network's first conv on a one-channel image, padded to
+    one chunk of 16 channels a tap), both strides, against the plain version
+    (f32 within 1e-4, bf16 within one rounding of the output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("K5 is CUDA code: needs a CUDA card")
+    from nextou_tpu_torch.kernels.conv import conv3d, conv3d_cuda, conv3d_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for B, spatial, Co, stride in ((2, (6, 12, 48), 32, (1, 1, 1)), (1, (5, 14, 34), 32, (2, 2, 2)),
+                                   (1, (4, 8, 64), 64, (1, 2, 2))):
+        x = torch.randn(B, 1, *spatial, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(Co, 1, 3, 3, 3, generator=gen, device="cuda") * 0.2).to(dtype)
+        before = conv3d_cuda.launches
+        got = conv3d(x, w, stride)
+        torch.cuda.synchronize()
+        assert conv3d_cuda.launches == before + 1
+        want = conv3d_reference(x, w, stride)
+        tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * want.float().abs() + 1e-3
+        assert ((got.float() - want.float()).abs() <= tol).all(), (B, spatial, stride)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["plain", "residual"])
+def test_plain_and_residual_unets_match_the_cpu_on_gpu(arch):
+    """A narrow PlainConvUNet and ResidualEncoderUNet, f32 with the conv
+    kernel on (K5 at their full-resolution (3, 3, 3) convs), on the card
+    against the CPU (the plain conv): logits within atol 1e-3 / rtol 1e-3,
+    in eval and in train mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("K5 is CUDA code: needs a CUDA card")
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda
+    from nextou_tpu_torch.models import (
+        PlainConvUNet, ResidualEncoderUNet, build_plain_unet_spec,
+        build_residual_encoder_unet_spec,
+    )
+    from nextou_tpu_torch.utils import init_weights
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(in_channels=1, patch_size=(64, 96, 112), n_stages=3, features_per_stage=[8, 16, 16],
+              kernel_sizes=[[3, 3, 3]] * 3, strides=[[1, 1, 1], [2, 2, 2], [2, 2, 2]],
+              n_conv_per_stage_decoder=[1, 1], num_classes=3, deep_supervision=False)
+    if arch == "plain":
+        spec, cls = build_plain_unet_spec(n_conv_per_stage=[2, 2, 2], **kw), PlainConvUNet
+    else:
+        spec, cls = build_residual_encoder_unet_spec(n_blocks_per_stage=[1, 2, 2], **kw), \
+            ResidualEncoderUNet
+    x = torch.from_numpy(_random((1, *spec.patch_size, 1), 3))
+    cpu = init_weights(cls(spec), seed=1)
+    card = cls(spec, conv_kernel="1", device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    for mode in ("eval", "train"):
+        before = conv3d_cuda.launches
+        with torch.no_grad():
+            want = getattr(cpu, mode)()(x)
+            got = getattr(card, mode)()(x.cuda()).cpu()
+        assert conv3d_cuda.launches > before
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_grapher_matches_the_cpu_on_gpu():
+    """The plain Grapher (K1 over the whole map, a reduced candidate set and
+    a position bias) in f32 on the card against the CPU: within atol 2e-3 /
+    rtol 1e-3 on all but 0.1% of values (kNN near ties)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the Grapher's kNN runs K1, CUDA code: needs a CUDA card")
+    from nextou_tpu_torch.core.pos_embed import relative_pos_bias
+    from nextou_tpu_torch.nn.graphers import Grapher
+    from nextou_tpu_torch.utils import init_weights
+
+    C, sp, r = 24, (4, 8, 8), 2
+    n, m = 256, 32
+    x = torch.from_numpy(_random((2, *sp, C), 4))
+    out = []
+    for dev in ("cpu", "cuda"):
+        table = torch.tensor(relative_pos_bias(C, n, m, 3), device=dev)[None]
+        g = init_weights(Grapher(C, table, dims=3, k=9, reduce_ratio=r, groups=6,
+                                 act_name="prelu", device=dev), seed=2)
+        before = port_knn.knn_max_cuda.launches
+        with torch.no_grad():
+            out.append(g.eval()(x.to(dev)).cpu())
+    assert port_knn.knn_max_cuda.launches == before + 1
+    off = (out[1] - out[0]).abs() > 2e-3 + 1e-3 * out[0].abs()
+    assert off.float().mean().item() <= 1e-3

@@ -173,8 +173,9 @@ def test_load_model_strips_upstream_wrappers(tmp_path):
 
 def test_port_imports_neither_jax_nor_flax():
     # every module of the port and the smoke script, in a fresh interpreter:
-    # no jax, no flax, and nothing of the JAX package (not even a module of
-    # it that loads no jax: the port keeps its own copy of what it needs)
+    # no jax, no flax, no msgpack (the port reads flax checkpoints itself),
+    # and nothing of the JAX package (not even a module of it that loads no
+    # jax: the port keeps its own copy of what it needs)
     code = (
         "import importlib, pkgutil, sys, nextou_tpu_torch, chip_smoke\n"
         "names = [m.name for m in pkgutil.walk_packages(nextou_tpu_torch.__path__, 'nextou_tpu_torch.')]\n"
@@ -184,9 +185,11 @@ def test_port_imports_neither_jax_nor_flax():
         "       'tools.exp_conv_kernel', 'native', 'data.augment', 'data.sampler', 'data.loader',\n"
         "       'infer.evaluate', 'train.checkpoint', 'train.trainer', 'train.trainers', 'run_training',\n"
         "       'data.io', 'data.preprocessing', 'data.resampling', 'paths', 'infer.raw',\n"
-        "       'evaluate_folder', 'postprocess', 'ensemble']\n"
+        "       'evaluate_folder', 'postprocess', 'ensemble', 'compat.flax_ckpt', 'predict_next_stage',\n"
+        "       'models.plain_unet', 'models.residual_unet', 'models.plans_network']\n"
         "assert all('nextou_tpu_torch.' + n in names for n in new), names\n"
-        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'nextou_tpu')))"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'msgpack',\n"
+        "                                                          'nextou_tpu')))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300, check=True)
@@ -202,8 +205,9 @@ def test_predictor_budget_and_trainer_names(monkeypatch):
 
     assert mirror_axes_for("nnUNetTrainer_NexToU_BTI_Synapse", 3) == (0, 1, 2)
     assert mirror_axes_for("nnUNetTrainer_NexToU_TI_NoMirroring", 3) is None
+    assert mirror_axes_for("nnUNetTrainer", 3) == (0, 1, 2)
     with pytest.raises(ValueError):
-        mirror_axes_for("nnUNetTrainer", 3)
+        mirror_axes_for("nnUNetTrainer_Unknown", 3)
     spec = presets.small_3d_spec(deep_supervision=False)
     pred = build_predictor(init_weights(NexToU(spec), seed=1).eval(), None, output="seg")
     data = np.random.default_rng(1).standard_normal((*spec.patch_size, 1)).astype(np.float32)
