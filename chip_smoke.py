@@ -109,7 +109,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     ``training_log.txt`` and ``validation/summary.json`` written; seconds
     per epoch and per iteration, the share of the train loop spent waiting
     in ``next(train_it)``, the host's cores and loader threads, peak device
-    memory; then the host loader alone, seconds per augmented batch;
+    memory. ``--device-da`` is left at ``auto``, so the loader draws plans
+    and the train step augments on the card: the DA path and the loader
+    wait are printed beside the host-DA figures; then the loader alone,
+    seconds per batch (sampling and plans);
 15. raw serving (after phase 10, on its checkpoint): a synthetic abdominal
     CT, int16 HU, (x, y, z) 512x512x148 at (0.68, 0.68, 3.0) mm, zero outside
     a field-of-view cylinder of radius 230, written as ``ct_000_0000.nii.gz``
@@ -170,7 +173,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     on a preprocessed case (the trainer's validation label on 99% of
     voxels) and ``--raw`` on a NIfTI copy of its central 96x224x192 crop
     (CT HU, with its previous-stage seg cropped alike): K1 exactly 14
-    launches per forward, labels in range, the NIfTI at the input's shape.
+    launches per forward, labels in range, the NIfTI at the input's shape;
+20. on-device augmentation (right after phase 14, on its cases): the
+    flagship's final patch 64x224x192 at batch 2, one channel, from the
+    initial patch (92, 324, 398) (rotation +-30 degrees) and (64, 320, 320)
+    (dummy 2D), each with the default probabilities and with every p = 1
+    (its plans' seed the first to fire every transform somewhere):
+    ``device_augment_batch`` on the card against the host path
+    (``augment_batch``) from the same seed, data within atol 1e-4 / rtol
+    1e-5, seg equal on 99.99% of voxels (exactly where no rotation or
+    scaling fired); its CUDA-event time per batch, each transform's alone,
+    the upload (pinned, as the train step makes it, and from pageable
+    memory), the plans and the host path's seconds; then the trainer
+    loop (``tools/exp_trainer_loop.run``: 1 epoch of 8 iterations, 2
+    validation iterations) with ``device_da`` off and on: seconds per
+    iteration, loader-wait share and the loader alone per batch.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record, each entry with the path its numbers were taken
@@ -192,6 +209,8 @@ import time
 import numpy as np
 import torch
 
+from nextou_tpu_torch.tools.exp_trainer_loop import LOADER_BATCHES, loader_seconds_per_batch
+from nextou_tpu_torch.tools.synthetic import labelled_case, write_dataset
 from nextou_tpu_torch.tools.timing import card, cuda_ms
 
 # the near-tie bound of phases 3 and 4, the row share allowed to differ (in
@@ -722,65 +741,6 @@ def dilated_kernel_phase(spec, dev) -> Totals:
     print(f"knn_indices per train step of the small dilated network: {total.ms:.4f} ms, "
           f"plain {total.plain_ms:.4f} ms, bound {total.bound_ms:.6f} ms")
     return total
-
-
-def write_dataset(folder: str, spec, configuration: str, cases: int, shape, seed: int,
-                  labelled: bool = False):
-    """A preprocessed dataset folder (plans, dataset.json, cases) for ``spec``,
-    in the plans format nnU-Net writes; each case is ``{case}.npz`` with
-    ``data`` (C, *sp) f32 and ``seg`` (*sp) int16, the preprocessed layout.
-    Without ``labelled`` the labels are all background and the data noise;
-    with it every label is present (regions of a coarse random partition,
-    16 x 40 x 40 voxels a cell) and the data is the label's intensity plus
-    noise, saved with the foreground locations the sampler oversamples."""
-    from nextou_tpu_torch.data.dataset import save_case
-
-    cfg = {
-        "batch_size": 2, "patch_size": list(spec.patch_size),
-        "spacing": [1.0] * spec.spatial_dims,
-        "normalization_schemes": ["CTNormalization"], "use_mask_for_norm": [False],
-        "UNet_class_name": "PlainConvUNet",
-        "UNet_base_num_features": spec.encoder[0].features,
-        "unet_max_num_features": max(st.features for st in spec.encoder),
-        "n_conv_per_stage_encoder": [st.n_conv + bool(st.gnn) for st in spec.encoder],
-        "n_conv_per_stage_decoder": [st.n_conv + bool(st.gnn) for st in spec.decoder],
-        "pool_op_kernel_sizes": [list(st.stride) for st in spec.encoder],
-        "conv_kernel_sizes": [list(st.kernel_size) for st in spec.encoder],
-        "batch_dice": True,
-    }
-    plans = {"dataset_name": "Dataset999_Smoke", "plans_name": "nnUNetPlans",
-             "configurations": {configuration: cfg}}
-    os.makedirs(folder, exist_ok=True)
-    with open(os.path.join(folder, "nnUNetPlans.json"), "w") as f:
-        json.dump(plans, f)
-    labels = {"background": 0, **{f"organ{i}": i for i in range(1, spec.num_classes)}}
-    with open(os.path.join(folder, "dataset.json"), "w") as f:
-        json.dump({"labels": labels, "numTraining": cases, "channel_names": {"0": "CT"},
-                   "file_ending": ".nii.gz"}, f)
-    rng = np.random.default_rng(seed)
-    for i in range(cases):
-        if not labelled:
-            np.savez(os.path.join(folder, f"case_{i:03d}.npz"),
-                     data=rng.standard_normal((1, *shape), dtype=np.float32),
-                     seg=np.zeros(shape, np.int16))
-            continue
-        data, seg = labelled_case(rng, shape, spec.num_classes)
-        save_case(folder, f"case_{i:03d}", data[None], seg)
-
-
-def labelled_case(rng, shape, num_classes: int):
-    """``(data, seg)`` of ``shape``: every label present, in regions of a
-    coarse random partition (16 x 40 x 40 voxels a cell), and the data the
-    label's intensity plus noise."""
-    cell = (16, 40, 40)
-    coarse = rng.standard_normal((num_classes, *(-(-n // c) for n, c in zip(shape, cell))))
-    seg = np.argmax(coarse, 0).astype(np.int16)
-    for axis, c in enumerate(cell):
-        seg = np.repeat(seg, c, axis=axis)
-    seg = np.ascontiguousarray(seg[tuple(slice(0, n) for n in shape)])
-    assert len(np.unique(seg)) == num_classes, "a label is missing"
-    data = (seg / (num_classes - 1) - 0.5 + rng.normal(0, 0.3, shape)).astype(np.float32)
-    return data, seg
 
 
 def slice_phase(dev, tmp: str, spec, shape) -> dict:
@@ -1484,7 +1444,11 @@ def conv_cl_phase(dev) -> tuple[Totals, int]:
 # validation case), 2 epochs of 4 iterations at the reference's 50
 # validation iterations per epoch
 TRAIN_CASES, TRAIN_SHAPE, EPOCHS, ITERS = 5, (64, 280, 240), 2, 4
-LOADER_BATCHES = 8
+# the host-DA path's figures of this phase on one NVIDIA H100 80GB HBM3 at
+# 700.00 W, by chip_smoke.py of git commits 6fffebe and 22db5b0, printed
+# beside this run's device-DA figures
+HOST_DA_WAIT = "0.545 in epoch 0 at 22db5b0, 0.339 at 6fffebe"
+HOST_DA_LOADER = "0.322 s per batch at 22db5b0, 0.276 at 6fffebe"
 
 
 def trainer_phase(dev, tmp: str) -> dict:
@@ -1545,6 +1509,13 @@ def trainer_phase(dev, tmp: str) -> dict:
         if not (math.isfinite(e["train_loss"]) and math.isfinite(e["val_loss"])):
             raise AssertionError(f"epoch {e['epoch']}: a loss is not finite")
     print(f"host: os.cpu_count() {os.cpu_count()}, loader threads {trainer.loader_threads}")
+    # device_da="auto" on the card: the loader draws plans, the step augments
+    da_line = next((line for line in log.splitlines() if " DA: initial patch size" in line), "")
+    print(f"DA path: device_da={trainer.device_da!r} ({da_line.split(' ', 2)[-1]}); loader wait "
+          f"in epoch 0 {trainer.log_history[0]['loader_wait_s'] / trainer.log_history[0]['train_time_s']:.3f} "
+          f"of the train loop (host DA: {HOST_DA_WAIT})")
+    if trainer.device_da is not True or "device DA" not in da_line:
+        raise AssertionError(f"device_da='auto' took the {trainer.device_da!r} path on the card")
     for name in ("checkpoint_final.pth", "checkpoint_best.pth", "training_log.txt",
                  "validation/summary.json"):
         if not os.path.exists(os.path.join(out, name)):
@@ -1571,24 +1542,143 @@ def trainer_phase(dev, tmp: str) -> dict:
         if seg.shape != TRAIN_SHAPE or seg.max() >= spec.num_classes or agree < 0.99:
             raise AssertionError(f"predict.main on the trained checkpoint: {cid}")
 
-    # the host loader alone: seconds per augmented batch once its queue has
-    # drained, beside the seconds per train step
+    # the loader alone (sampling and the plans): seconds per batch once its
+    # queue has drained, beside the seconds per train step
     loader, _ = trainer.get_dataloaders()
-    with loader:
-        it = iter(loader)
-        for _ in range(loader.prefetch + 1):
-            next(it)
-        t0 = time.perf_counter()
-        for _ in range(LOADER_BATCHES):
-            next(it)
-        per_batch = (time.perf_counter() - t0) / LOADER_BATCHES
-    print(f"host loader alone ({trainer.loader_threads} threads, {os.cpu_count()} cores): "
-          f"{per_batch:.3f} s per augmented batch of {trainer.batch_size} over {LOADER_BATCHES} "
-          f"batches")
+    per_batch = loader_seconds_per_batch(loader)
+    print(f"loader alone, device DA ({trainer.loader_threads} threads, {os.cpu_count()} cores): "
+          f"{per_batch:.3f} s per batch of {trainer.batch_size} over {LOADER_BATCHES} batches "
+          f"(host DA: {HOST_DA_LOADER})")
     last = trainer.log_history[-1]
     return {"k1": k1, "k3": k3, "k4": k4, "s_per_iter": last["train_time_s"] / ITERS,
             "wait_share": last["loader_wait_s"] / last["train_time_s"], "peak_bytes": peak,
             "loader_s_per_batch": per_batch}
+
+
+# --- on-device augmentation (phase 20) -------------------------------------------------
+
+# the flagship's final patch at batch 2, one channel; rotation +-30 degrees per
+# axis gives the initial patch (92, 324, 398), dummy 2D (+-180 degrees in
+# plane) gives (64, 320, 320); the trainer loop on phase 14's cases
+DA_BATCH, DA_ITERS = 2, 8
+DA_ALL = dict.fromkeys(("p_rotation", "p_scaling", "p_noise", "p_blur", "p_brightness",
+                        "p_contrast", "p_lowres", "p_gamma_invert", "p_gamma"), 1.0)
+# each transform's fields of the plan, timed alone on the crop
+DA_TRANSFORMS = {"rotation+scaling": ("mat", "offset"), "noise": ("noise",), "blur": ("blur",),
+                 "brightness": ("brightness",), "contrast": ("contrast",),
+                 "lowres": ("lowres",), "gamma": ("gamma",), "mirror": ("mirror",)}
+
+
+def fired_everywhere(plans) -> bool:
+    """Every transform fired in some sample, the per-channel coins too."""
+    def fired(plan, field):
+        value = getattr(plan, field)
+        if field in ("blur", "lowres"):  # a coin per channel
+            return value is not None and any(v is not None for v in value)
+        return value is not None and (not isinstance(value, (list, tuple)) or len(value) > 0)
+
+    return all(any(fired(p, fields[0]) for p in plans) for fields in DA_TRANSFORMS.values())
+
+
+def device_augment_phase(dev, tmp: str) -> dict:
+    """Phase 20: the card's device DA against the host path at the
+    flagship's full patch, each transform's time, then the trainer loop
+    with ``device_da`` off and on on phase 14's cases."""
+    from nextou_tpu_torch.data.augment import AugmentConfig, augment_batch, initial_patch_size
+    from nextou_tpu_torch.data.device_augment import (
+        AugmentPlan, device_augment_batch, draw_augment_plan,
+    )
+    from nextou_tpu_torch.models.presets import flagship_3d_spec
+    from nextou_tpu_torch.tools.exp_trainer_loop import run
+
+    t_phase = time.time()
+    final = tuple(flagship_3d_spec().patch_size)
+    out = {}
+    for name, probs, dummy in (("default", {}, False), ("default, dummy 2D", {}, True),
+                               ("every p = 1", DA_ALL, False),
+                               ("every p = 1, dummy 2D", DA_ALL, True)):
+        rot = (math.pi,) * 3 if dummy else (math.pi / 6,) * 3
+        cfg = AugmentConfig(**probs, rotation_rad=rot, dummy_2d=dummy, mirror_axes=(0, 1, 2),
+                            final_patch_size=final)
+        initial = initial_patch_size(final, rot, dummy)
+        rng = np.random.default_rng(60)
+        cases = [labelled_case(rng, initial, 14) for _ in range(DA_BATCH)]
+        data = np.stack([d[None] for d, _ in cases])
+        seg = np.stack([s for _, s in cases])
+        # the plans' seed: the first from 0 whose plans fire every transform
+        # somewhere where every p is 1 (blur and lowres toss a coin per channel)
+        seed = 0
+        while probs and not fired_everywhere(
+                [draw_augment_plan(cfg, d.shape, np.random.default_rng(seed)) for d in data]):
+            seed += 1
+        t0 = time.perf_counter()
+        plan_rng = np.random.default_rng(seed)
+        plans = [draw_augment_plan(cfg, d.shape, plan_rng) for d in data]
+        plan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want_d, want_s, _ = augment_batch(data.copy(), seg.copy(), cfg, np.random.default_rng(seed))
+        host_s = time.perf_counter() - t0
+        # the upload as the train step makes it (the loader pins the batch),
+        # and from pageable memory
+        pinned = [torch.from_numpy(a).pin_memory() for a in (data, seg)]
+        upload_ms = cuda_ms(lambda: [a.to(dev, non_blocking=True) for a in pinned], iters=3,
+                            warmup=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data_dev, seg_dev = torch.from_numpy(data).to(dev), torch.from_numpy(seg).to(dev)
+        torch.cuda.synchronize()
+        pageable_ms = (time.perf_counter() - t0) * 1e3
+        got_d, got_s, _ = device_augment_batch(data_dev, seg_dev, plans, cfg)
+        batch_ms = cuda_ms(lambda: device_augment_batch(data_dev, seg_dev, plans, cfg), iters=3,
+                           warmup=1)
+        got_d, got_s = got_d.cpu().numpy(), got_s.cpu().numpy()
+        err = np.abs(got_d - want_d)
+        outside = int((err > 1e-4 + 1e-5 * np.abs(want_d)).sum())
+        agree = float((got_s == want_s).mean())
+        spatial = any(p.mat is not None for p in plans)
+        print(f"device DA, {name}: {initial} -> {final}, batch {DA_BATCH}, plans of seed {seed} "
+              f"(spatial {[p.mat is not None for p in plans]}); data max |card - host| "
+              f"{err.max():.3g}, {outside} values outside atol 1e-4 / rtol 1e-5; seg equal on "
+              f"{agree:.6f} of voxels; device_augment_batch {batch_ms:.2f} ms per batch "
+              f"(CUDA events), upload {upload_ms:.2f} ms pinned ({pageable_ms:.2f} ms from pageable "
+              f"memory), plans {plan_s * 1e3:.2f} ms, host "
+              f"augment_batch {host_s:.3f} s")
+        if got_d.shape != want_d.shape or outside or agree < 0.9999 or (
+                not spatial and agree != 1.0):
+            raise AssertionError(f"device DA ({name}) differs from the host path")
+        out[name] = {"batch_ms": batch_ms, "upload_ms": upload_ms, "pageable_ms": pageable_ms,
+                     "host_s": host_s,
+                     "max_abs_err": float(err.max()), "seg_agree": agree}
+        if not probs:
+            continue
+        times = {"crop": cuda_ms(lambda: device_augment_batch(
+            data_dev, seg_dev, [AugmentPlan(p.in_shape, p.out_shape) for p in plans], cfg),
+            iters=3, warmup=1)}
+        for transform, fields in DA_TRANSFORMS.items():
+            alone = [AugmentPlan(p.in_shape, p.out_shape, **{f: getattr(p, f) for f in fields})
+                     for p in plans]
+            times[transform] = cuda_ms(lambda a=alone: device_augment_batch(
+                data_dev, seg_dev, a, cfg), iters=3, warmup=1)
+        print(f"  each transform alone on the batch (CUDA events, ms; the crop included): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in times.items()))
+        out[name]["transform_ms"] = times
+        del data_dev, seg_dev
+        torch.cuda.empty_cache()
+
+    data_dir = os.path.join(tmp, "train_data")  # phase 14's cases
+    for device_da in (False, True):
+        row = run(data_dir, os.path.join(tmp, f"da_loop_{device_da}"), 2, device_da, DA_ITERS,
+                  device=str(dev))
+        print(f"trainer loop, device_da {'on' if device_da else 'off'}: 1 epoch x {DA_ITERS} "
+              f"iterations, {row['s_per_iter']:.3f} s per iteration, waiting in next(train_it) "
+              f"{row['wait_share']:.3f} of the loop; the loader alone "
+              f"{row['loader_s_per_batch']:.3f} s per batch (2 threads); train loss "
+              f"{row['train_loss']:.4f}")
+        if not math.isfinite(row["train_loss"]):
+            raise AssertionError(f"device_da={device_da}: the train loss is not finite")
+        out[f"loop_{device_da}"] = row
+    print(f"phase 20: {time.time() - t_phase:.1f} s")
+    return out
 
 
 # --- raw serving, host accumulation, fold ensembles (phases 15-17) ---------------------
@@ -2142,7 +2232,7 @@ def plans_networks_phase(dev, tmp: str) -> dict:
     trainer = get_trainer_class("nnUNetTrainer")(
         plans_path, config, 0, load_json(os.path.join(res_dir, "dataset.json")),
         preprocessed_folder=res_dir, output_folder=os.path.join(res_dir, "out"), device=dev,
-        remat=False, conv_kernel="1").initialize()
+        remat=False, conv_kernel="1", device_da=False).initialize()  # steps on a made batch
     rs = trainer.model_spec
     assert PlansManager(plans_path).get_configuration(config).UNet_class_name == \
         "ResidualEncoderUNet"
@@ -2439,6 +2529,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         trained = trainer_phase(dev, tmp)
+        torch.cuda.empty_cache()
+        device_augment_phase(dev, tmp)
     torch.cuda.empty_cache()
     tools = tools_phase(dev)
     records["conv_probe"], records["knn_dissect"] = tools["conv_probe"], tools["knn_dissect"]

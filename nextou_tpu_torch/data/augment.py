@@ -20,6 +20,12 @@ The affine resampling and the Gaussian blur run on the port's native
 resampler (``nextou_tpu_torch/native``), whose contract is the scipy call
 it replaces; the low-resolution zoom is scipy's. Everything runs on the
 host, overlapped with the card's work by the prefetching loader.
+
+The device path is ``data/device_augment.py``: ``draw_augment_plan`` makes
+exactly this module's draws, in this order, without touching a voxel, and
+``device_augment_batch`` applies them on the card to the same initial-size
+patches, giving this module's batch within float rounding (the trainer's
+``device_da``).
 """
 
 from __future__ import annotations

@@ -13,8 +13,13 @@ every 50 epochs) and ``validation/summary.json``;
 
 Trains on the card (``--device cuda``, the default) unless ``--device cpu``
 asks for the CPU; without a card and without that option it fails with
-torch's own error. ``--device-da on`` (on-device augmentation) is not ported
-yet (ROADMAP M9).
+torch's own error. ``--device-da`` picks where the augmentation runs:
+``on`` draws each sample's plan in the loader threads and augments on the
+device inside the train step (``data/device_augment.py``; on the CPU with
+``--device cpu``), ``off`` augments on the host (``data/augment.py``), and
+``auto`` (the default) is on for the card and off on the CPU. A cascade
+configuration keeps host augmentation either way. Both give the same
+batches for one seed, within float rounding.
 """
 
 from __future__ import annotations
@@ -50,8 +55,8 @@ def main(argv=None):
                          "(momentum and generator stay fresh; tensors of another shape keep "
                          "their initialization)")
     ap.add_argument("--device-da", choices=["auto", "on", "off"], default="auto",
-                    help="augmentation on the device inside the train step (not ported yet: "
-                         "auto means off)")
+                    help="augmentation on the device inside the train step: on, off (on "
+                         "the host), or auto (on for the card, off on the CPU and for a cascade)")
     ap.add_argument("--device", default="cuda",
                     help="the card by default; 'cpu' trains on the CPU in f32")
     args = ap.parse_args(argv)

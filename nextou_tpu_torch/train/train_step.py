@@ -2,8 +2,10 @@
 
 bf16 compute with f32 parameters replaces AMP: every layer casts its f32
 weights to the compute dtype, so the gradients arrive in f32, and no
-``GradScaler`` is needed (bf16 has f32's exponent range). On-device
-augmentation inside the step is not ported yet.
+``GradScaler`` is needed (bf16 has f32's exponent range). With an
+``augment`` config the step also augments: it uploads the loader's raw
+initial-size patches and applies their host-drawn plans on the model's
+device (``data/device_augment.py``) before the forward.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
+from nextou_tpu_torch.data.augment import AugmentConfig
+from nextou_tpu_torch.data.device_augment import device_augment_batch
 from nextou_tpu_torch.losses import (
     CompoundLossSpec,
     dc_ce_ti_loss,
@@ -23,11 +27,21 @@ from nextou_tpu_torch.train.optimizer import SGD
 from nextou_tpu_torch.train.state import TrainState
 
 
-def _batch_on(model: nn.Module, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def _batch_on(model: nn.Module, batch: dict,
+              augment: AugmentConfig | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     device = next(model.parameters()).device
-    data = torch.as_tensor(batch["data"]).to(device)
-    seg = torch.as_tensor(batch["seg"]).to(device=device, dtype=torch.long)
-    return data, seg
+    # asynchronous where the loader pinned the batch (device augmentation)
+    data = torch.as_tensor(batch["data"]).to(device, non_blocking=True)
+    seg = torch.as_tensor(batch["seg"]).to(device, non_blocking=True)
+    if augment is not None:
+        if "plans" not in batch:
+            raise ValueError("this train step augments on the device: its batches come from "
+                             "PatchDataLoader(device_augment=True), with 'plans'")
+        # (B, C, *initial) -> (B, C, *final), then channels-last as the host
+        # loader delivers it
+        data, seg, _ = device_augment_batch(data, seg, batch["plans"], augment)
+        data = torch.movedim(data, 1, -1).contiguous()
+    return data, seg.long()
 
 
 def _loss(model, data, seg, loss_spec, ds_weights) -> tuple[torch.Tensor, list]:
@@ -45,11 +59,15 @@ def make_train_step(
     optimizer: SGD,
     loss_spec: CompoundLossSpec,
     ds_weights: Sequence[float] | None = None,
+    augment: AugmentConfig | None = None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` = {'data': (B, *sp, C) float, 'seg': (B, *sp) int}, numpy arrays
-    or tensors; they are moved to the model's device. ``state`` (which holds
+    or tensors; they are moved to the model's device. With ``augment`` the
+    batch is the device-augmenting loader's {'data': (B, C, *initial),
+    'seg': (B, *initial), 'plans'}, augmented on the device to the final
+    patch before the forward. ``state`` (which holds
     ``model``) is updated in place and returned. ``metrics`` holds ``loss``
     and ``grad_norm`` (the global norm before clipping) as 0-d tensors on the
     device: reading them waits for the step.
@@ -57,7 +75,7 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: dict):
         model.train()
-        data, seg = _batch_on(model, batch)
+        data, seg = _batch_on(model, batch, augment)
         params = list(model.parameters())
         loss, _ = _loss(model, data, seg, loss_spec, ds_weights)
         grads = torch.autograd.grad(loss, params, allow_unused=True)

@@ -19,13 +19,16 @@ the image's, perturbed in training (``data/loader.py``).
 
 It runs on one ``device``, the card unless the caller asks for the CPU,
 computing in bf16 there (f32 on the CPU) with f32 parameters. The host
-samples and augments patches in ``loader_threads`` threads while the card
-trains; losses and the pseudo-Dice statistics stay on the device and are
-read once per epoch.
+samples patches in ``loader_threads`` threads while the card trains; losses
+and the pseudo-Dice statistics stay on the device and are read once per
+epoch. With ``device_da`` (``"auto"``: on for a CUDA device, off on the CPU
+and for a cascade, the JAX trainer's rule on the port's accelerator) the
+threads only draw each sample's augmentation plan and the train step
+augments on the device (``data/device_augment.py``), to the host path's
+batch; otherwise the threads augment on the host (``data/augment.py``).
 
-Not ported yet, each raising ``NotImplementedError``: on-device augmentation
-(``device_da=True``, ROADMAP M9; ``"auto"`` resolves to off) and
-data-parallel training over several processes (M10).
+Not ported yet, raising ``NotImplementedError``: data-parallel training over
+several processes (ROADMAP M10).
 """
 
 from __future__ import annotations
@@ -181,11 +184,16 @@ class NexToUTrainer:
         return rot, do_dummy, self.configure_mirroring()
 
     def _resolve_device_da(self) -> None:
+        """``nextou_tpu/train/trainer.py::_resolve_device_da`` with the card
+        as the accelerator: ``"auto"`` is on for a CUDA device and off on
+        the CPU; a cascade keeps host augmentation (its one-hot noise needs
+        connected components on the host)."""
         if self.device_da == "auto":
+            self.device_da = self.device.type == "cuda" and not self._cascade()
+        if self.device_da and self._cascade():
+            self.print_to_log_file(
+                "device_da disabled: cascade one-hot noise needs host-side connected components")
             self.device_da = False
-        if self.device_da:
-            raise NotImplementedError(
-                "on-device augmentation (device_da=True) is not ported yet: ROADMAP M9")
 
     def _augment_config(self) -> AugmentConfig:
         rot, do_dummy, mirror = self.configure_rotation_dummyDA_mirroring_and_initial_patch_size()
@@ -268,8 +276,9 @@ class NexToUTrainer:
         self.optimizer = make_optimizer(schedule, weight_decay=self.weight_decay,
                                         clip_norm=self.grad_clip_norm)
         self.state = create_train_state(self.network, self.optimizer, self.seed)
-        self.train_step = make_train_step(self.network, self.optimizer, self.loss_spec,
-                                          self.ds_weights)
+        self.train_step = make_train_step(
+            self.network, self.optimizer, self.loss_spec, self.ds_weights,
+            augment=self._augment_config() if self.device_da else None)
         self.eval_step = make_eval_step(self.network, self.loss_spec, self.ds_weights)
         # plans + dataset.json beside the checkpoints, as the substrate does
         os.makedirs(self.output_folder, exist_ok=True)
@@ -310,10 +319,11 @@ class NexToUTrainer:
         patch = tuple(self.configuration_manager.patch_size)
         self._resolve_device_da()
         aug = self._augment_config()
-        # host DA samples the larger initial patch (nnU-Net's exact
+        # both DA paths sample the larger initial patch (nnU-Net's exact
         # rotate-then-crop, data/augment.py); validation samples the final size
         sampler_patch = initial_patch_size(patch, aug.rotation_rad, aug.dummy_2d, aug.scale_range)
-        self.print_to_log_file(f"host DA: initial patch size {sampler_patch} -> {patch}")
+        self.print_to_log_file(f"{'device' if self.device_da else 'host'} DA: initial patch "
+                               f"size {sampler_patch} -> {patch}")
         train_sampler = PatchSampler(train_ds, sampler_patch, self.batch_size,
                                      self.oversample_foreground_percent, seed=self.seed)
         val_sampler = PatchSampler(val_ds, patch, self.batch_size,
@@ -321,7 +331,8 @@ class NexToUTrainer:
         onehot = tuple(self.label_manager.foreground_labels) if self._cascade() else None
         train_loader = PatchDataLoader(train_sampler, augment=aug, seed=self.seed,
                                        num_threads=self.loader_threads, onehot_labels=onehot,
-                                       cascade_noise=self._cascade())
+                                       cascade_noise=self._cascade(),
+                                       device_augment=self.device_da)
         val_loader = PatchDataLoader(val_sampler, augment=None, seed=self.seed + 7,
                                      num_threads=self.loader_threads, onehot_labels=onehot)
         return train_loader, val_loader

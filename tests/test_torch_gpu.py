@@ -3,7 +3,8 @@ against their plain PyTorch versions on a CUDA card; for the wgmma conv core
 of K5 and T3 also its weight packing against the Python mirror (bit for bit)
 and a one-hot (1, 1, 1) conv (exact). Imports no jax, so that it runs on a machine with the
 card and without jax. Also holds the predictor's host-accumulation path
-against its device path on the card:
+against its device path, and on-device augmentation against the CPU and the
+host path, on the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
@@ -734,3 +735,37 @@ def test_grapher_matches_the_cpu_on_gpu():
     assert port_knn.knn_max_cuda.launches == before + 1
     off = (out[1] - out[0]).abs() > 2e-3 + 1e-3 * out[0].abs()
     assert off.float().mean().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dummy_2d", [False, True])
+def test_device_augment_on_the_card_equals_the_cpu(dummy_2d):
+    """``device_augment_batch`` on the card against the same plans on the
+    CPU and against the host path (``augment_batch``) from the same seed,
+    every transform firing: data within atol 1e-4 / rtol 1e-5, seg equal on
+    99.99% of voxels. The plans are drawn once, on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("compares the card's augmentation with the CPU's: needs a CUDA card")
+    from nextou_tpu_torch.data.augment import AugmentConfig, augment_batch, initial_patch_size
+    from nextou_tpu_torch.data.device_augment import device_augment_batch, draw_augment_plan
+
+    final = (16, 48, 40)
+    rot = (np.pi,) * 3 if dummy_2d else (np.pi / 6,) * 3
+    probs = {p: 1.0 for p in ("p_rotation", "p_scaling", "p_noise", "p_blur", "p_brightness",
+                              "p_contrast", "p_lowres", "p_gamma_invert", "p_gamma")}
+    cfg = AugmentConfig(**probs, rotation_rad=rot, dummy_2d=dummy_2d, mirror_axes=(0, 1, 2),
+                        final_patch_size=final)
+    initial = initial_patch_size(final, rot, dummy_2d)
+    rng = np.random.default_rng(4)
+    data = rng.standard_normal((2, 2, *initial)).astype(np.float32)
+    seg = rng.integers(0, 14, (2, *initial)).astype(np.int16)
+    want_d, want_s, _ = augment_batch(data.copy(), seg.copy(), cfg, np.random.default_rng(9))
+    plan_rng = np.random.default_rng(9)
+    plans = [draw_augment_plan(cfg, d.shape, plan_rng) for d in data]
+    outs = {dev: device_augment_batch(torch.from_numpy(data).to(dev),
+                                      torch.from_numpy(seg).to(dev), plans, cfg)
+            for dev in ("cpu", "cuda")}
+    assert outs["cuda"][0].is_cuda and outs["cuda"][0].shape == (2, 2, *final)
+    for ref_d, ref_s in ((outs["cpu"][0].numpy(), outs["cpu"][1].numpy()), (want_d, want_s)):
+        np.testing.assert_allclose(outs["cuda"][0].cpu().numpy(), ref_d, atol=1e-4, rtol=1e-5)
+        assert (outs["cuda"][1].cpu().numpy() == ref_s).mean() >= 0.9999

@@ -92,23 +92,83 @@ def test_every_registered_name_matches_the_jax_trainers_hooks(plans, config, dat
         assert bti._loss_spec(bti(plans, config, 0, dataset_json, device="cpu")).weight_ti == 1e-6
 
 
-def test_what_is_not_ported_raises(dataset, tmp_path):
-    """On-device augmentation (M9) raises. ``nnUNetTrainer`` (the plans'
-    PlainConvUNet) and cascades are ported: the first builds, the second
-    fails as the JAX trainer does when its previous stage's predictions are
-    missing (tests/test_torch_cascade.py runs one)."""
+def test_what_is_not_ported_raises(dataset, tmp_path, monkeypatch):
+    """Data-parallel training over several processes (M10) raises. What is
+    ported runs: ``nnUNetTrainer`` (the plans' PlainConvUNet) builds;
+    on-device augmentation (M9) initializes on the CPU with
+    ``device_da=True``, ``"auto"`` resolves to off on the CPU, and a cascade
+    with ``device_da=True`` logs the JAX trainer's message and turns it off;
+    a cascade fails as the JAX trainer does when its previous stage's
+    predictions are missing (tests/test_torch_cascade.py runs one)."""
     kw = dict(preprocessed_folder=dataset, device="cpu", output_folder=str(tmp_path / "out"))
     vanilla = get_trainer_class("nnUNetTrainer")(TINY_PLANS, CONFIG, 0, DATASET_JSON, **kw)
     assert not any(st.gnn for st in vanilla.initialize().model_spec.encoder)
     device_da = get_trainer_class("nnUNetTrainer_NexToU")(
-        TINY_PLANS, CONFIG, 0, DATASET_JSON, device_da=True, **kw)
-    with pytest.raises(NotImplementedError, match="M9"):
-        device_da.initialize()
+        TINY_PLANS, CONFIG, 0, DATASET_JSON, device_da=True, **kw).initialize()
+    assert device_da.device_da is True
+    auto = get_trainer_class("nnUNetTrainer_NexToU")(TINY_PLANS, CONFIG, 0, DATASET_JSON, **kw)
+    assert auto.device_da == "auto" and auto.initialize().device_da is False
     cascade = json.loads(json.dumps(TINY_PLANS))
     cascade["configurations"]["cascade"] = {"inherits_from": CONFIG, "previous_stage": CONFIG}
+    stage = get_trainer_class("nnUNetTrainer_NexToU")(cascade, "cascade", 0, DATASET_JSON,
+                                                      device_da=True, **kw).initialize()
+    assert stage.device_da is False
+    with open(os.path.join(kw["output_folder"], "training_log.txt")) as f:
+        assert "device_da disabled: cascade one-hot noise" in f.read()
     with pytest.raises(FileNotFoundError, match="predict_next_stage"):
-        get_trainer_class("nnUNetTrainer_NexToU")(cascade, "cascade", 0, DATASET_JSON,
-                                                   **kw).get_split()
+        stage.get_split()
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="M10"):
+        get_trainer_class("nnUNetTrainer_NexToU")(TINY_PLANS, CONFIG, 0, DATASET_JSON,
+                                                   **kw).initialize()
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The 2d_tiny network's ops are small: one intra-op thread keeps them
+    from waiting on each other's threads where pytest's workers share the
+    cores; the results are the same."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_device_da_trains_on_the_host_paths_batches(dataset, tmp_path, one_torch_thread):
+    """``device_da=True`` on the CPU against host DA from the same seed, one
+    loader thread each: the first batch, augmented by the train step's own
+    path, is the host loader's (data within atol 1e-4 / rtol 1e-5, seg
+    equal on 99.99% of voxels), and the first step from the same initial
+    state gives the same loss (rtol 1e-4); then 1 epoch of 2 iterations
+    (2 validation iterations) trains. Later steps are not compared: this random network's kNN
+    selection turns differences in the last bits into different losses."""
+    from nextou_tpu_torch.train.train_step import _batch_on
+
+    trainers = {}
+    for mode in (False, True):
+        trainers[mode] = get_trainer_class("nnUNetTrainer_NexToU")(
+            TINY_PLANS, CONFIG, 0, DATASET_JSON, preprocessed_folder=dataset, device="cpu",
+            output_folder=str(tmp_path / f"da_{mode}"), device_da=mode, loader_threads=1,
+            num_epochs=1, num_iterations_per_epoch=2, seed=11).initialize()
+    host_t, device_t = trainers[False], trainers[True]
+    (host_loader, _), (device_loader, _) = host_t.get_dataloaders(), device_t.get_dataloaders()
+    with host_loader, device_loader:
+        want, raw = next(iter(host_loader)), next(iter(device_loader))
+    assert raw["data"].shape[2:] == (92, 92) and want["data"].shape[1:] == (64, 64, 1)
+    data, seg = _batch_on(device_t.network, raw, device_t._augment_config())
+    np.testing.assert_allclose(data.numpy(), want["data"], atol=1e-4, rtol=1e-5)
+    assert (seg.numpy() == want["seg"]).mean() >= 0.9999
+    _, host_metrics = host_t.train_step(host_t.state, want)
+    _, device_metrics = device_t.train_step(device_t.state, raw)
+    np.testing.assert_allclose(device_metrics["loss"].item(), host_metrics["loss"].item(),
+                               rtol=1e-4)
+    device_t.num_val_iterations_per_epoch = 2
+    device_t.run_training()
+    (entry,) = device_t.log_history
+    assert np.isfinite(entry["train_loss"]) and device_t.state.step == 3
+    with open(os.path.join(device_t.output_folder, "training_log.txt")) as f:
+        assert "device DA: initial patch size (92, 92) -> (64, 64)" in f.read()
 
 
 def test_cpu_run_training_writes_what_predict_serves(trained, dataset, tmp_path):
