@@ -187,7 +187,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     memory), the plans and the host path's seconds; then the trainer
     loop (``tools/exp_trainer_loop.run``: 1 epoch of 8 iterations, 2
     validation iterations) with ``device_da`` off and on: seconds per
-    iteration, loader-wait share and the loader alone per batch.
+    iteration, loader-wait share and the loader alone per batch;
+21. data parallel on one card (NCCL refuses two ranks on one device): (a)
+    after phase 20, ``python -m torch.distributed.run
+    --standalone --nproc_per_node 1 -m nextou_tpu_torch.run_training`` on
+    phase 14's cases, 1 epoch x 4 iterations, over NCCL: the log names world
+    size 1, nccl and local batch 2, the first step's loss bit-equal to phase
+    14's (the same seed without the launcher), no all-reduce in the train
+    steps, rank 0's checkpoints and validation written, seconds per
+    iteration beside phase 14's; (b) two ranks spawned on card 0 over gloo,
+    the flagship at a global batch of 2 (one sample per rank), 3 Dice + CE
+    steps, against one process at batch 2 from the same weights and
+    batches: the first loss within rtol 1e-2, the first gradient norm within
+    2e-2, every parameter and buffer bit-equal across the ranks after the
+    steps (SHA-256 digests broadcast from each rank), K3 and K4 14 launches
+    per step per rank; each rank's seconds per step and its all-reduces per
+    step with their milliseconds (gloo takes CUDA tensors through host
+    memory: a record, not a target); (c) after phase 5, ``predict.main
+    --all-devices`` on its first case, its seg bit-equal to the same call's
+    without the flag (one card).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record, each entry with the path its numbers were taken
@@ -1552,7 +1570,7 @@ def trainer_phase(dev, tmp: str) -> dict:
     last = trainer.log_history[-1]
     return {"k1": k1, "k3": k3, "k4": k4, "s_per_iter": last["train_time_s"] / ITERS,
             "wait_share": last["loader_wait_s"] / last["train_time_s"], "peak_bytes": peak,
-            "loader_s_per_batch": per_batch}
+            "loader_s_per_batch": per_batch, "log": trainer.log_history}
 
 
 # --- on-device augmentation (phase 20) -------------------------------------------------
@@ -1679,6 +1697,249 @@ def device_augment_phase(dev, tmp: str) -> dict:
         out[f"loop_{device_da}"] = row
     print(f"phase 20: {time.time() - t_phase:.1f} s")
     return out
+
+
+# --- data parallel (phase 21) ----------------------------------------------------------
+
+# (b): the flagship at a global batch of 2 on two ranks of one sample, Dice + CE
+DP_STEPS, DP_WORLD = 3, 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _dp_batches(spec) -> list:
+    rng = np.random.default_rng(21)
+    return [{"data": rng.standard_normal((TRAIN_BATCH, *spec.patch_size, 1), dtype=np.float32),
+             "seg": rng.integers(0, spec.num_classes, (TRAIN_BATCH, *spec.patch_size))}
+            for _ in range(DP_STEPS)]
+
+
+def _dp_state(dev, spec):
+    from nextou_tpu_torch.losses import CompoundLossSpec, deep_supervision_weights
+    from nextou_tpu_torch.models import NexToU
+    from nextou_tpu_torch.parallel import broadcast_module
+    from nextou_tpu_torch.train import create_train_state, make_optimizer, make_train_step, poly_lr
+
+    model = NexToU(spec, dtype=torch.bfloat16, device=dev)
+    opt = make_optimizer(poly_lr(1e-2, 1000, 0.9, steps_per_epoch=250))
+    state = create_train_state(model, opt, seed=0)
+    broadcast_module(model)
+    step = make_train_step(model, opt, CompoundLossSpec(),
+                           deep_supervision_weights(len(spec.decoder)))
+    return state, step
+
+
+def _dp_rank(r: int, port: int, tmp: str) -> None:
+    """Phase 21 (b), one rank: two ranks share card 0 over gloo, each with
+    one sample of every batch; its losses, gradient norms, seconds, kernel
+    launches and all-reduces per step, and a digest of its parameters and
+    buffers after the steps, compared with the other rank's over a
+    broadcast. Written to ``tmp/dp_rank{r}.pt``."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from nextou_tpu_torch import parallel
+    from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda
+    from nextou_tpu_torch.models.presets import flagship_3d_spec
+
+    os.environ.update(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(DP_WORLD),
+                      LOCAL_WORLD_SIZE=str(DP_WORLD), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    dev = parallel.initialize_distributed("cuda")
+    try:
+        spec = flagship_3d_spec(num_classes=14, deep_supervision=True)
+        state, step = _dp_state(dev, spec)
+        # every all-reduce timed to a synchronize on both sides (gloo copies
+        # CUDA tensors through host memory and waits for them anyway)
+        reduce_ms, all_reduce = [], dist.all_reduce
+
+        def timed_all_reduce(t, *args, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = all_reduce(t, *args, **kw)
+            torch.cuda.synchronize(dev)
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        dist.all_reduce = timed_all_reduce
+        rows = []
+        for batch in _dp_batches(spec):
+            batch = {k: v[r:r + 1] for k, v in batch.items()}
+            before = (knn_max_idx_cuda.launches, knn_max_bwd_cuda.launches, knn_max_cuda.launches,
+                      parallel.all_reduce.calls, len(reduce_ms))
+            torch.cuda.synchronize(dev)
+            t0 = time.time()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize(dev)
+            rows.append({
+                "s": time.time() - t0, "loss": metrics["loss"].item(),
+                "grad_norm": metrics["grad_norm"].item(),
+                "k3": knn_max_idx_cuda.launches - before[0],
+                "k4": knn_max_bwd_cuda.launches - before[1],
+                "k1": knn_max_cuda.launches - before[2],
+                "all_reduces": parallel.all_reduce.calls - before[3],
+                "all_reduce_ms": sum(reduce_ms[before[4]:]),
+            })
+        dist.all_reduce = all_reduce
+        sha = hashlib.sha256()
+        for t in (*state.model.parameters(), *state.model.buffers()):
+            sha.update(t.detach().contiguous().cpu().numpy().tobytes())
+        mine = torch.tensor(list(sha.digest()), dtype=torch.uint8, device=dev)
+        digests = []
+        for src in range(DP_WORLD):
+            d = mine.clone()
+            dist.broadcast(d, src)
+            digests.append(d.cpu().tolist())
+        torch.save({"rows": rows, "digests": digests, "backend": str(dist.get_backend()),
+                    "device": str(dev), "peak_bytes": torch.cuda.max_memory_allocated(dev)},
+                   os.path.join(tmp, f"dp_rank{r}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def one_rank_phase(tmp: str, trained: dict) -> None:
+    """Phase 21 (a): the trainer under ``torch.distributed.run`` on one NCCL
+    rank on phase 14's cases, against phase 14's run."""
+    import subprocess
+
+    data_dir, out = os.path.join(tmp, "train_data"), os.path.join(tmp, "dp_one_rank")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "nextou_tpu_torch.run_training", data_dir, "3d_fullres_nextou", "0",
+           "-tr", "nnUNetTrainer_NexToU", "--epochs", "1", "--iters", str(ITERS), "-o", out]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    run_s = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torch.distributed.run exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(os.path.join(out, "training_log.txt")) as f:
+        log = f.read()
+    line = next((x for x in log.splitlines() if "data parallel: world size" in x), "")
+    ckpt = torch.load(os.path.join(out, "checkpoint_final.pth"), map_location="cpu",
+                      weights_only=True)
+    (epoch,) = ckpt["logging"]
+    ref = trained["log"][0]
+    per_iter = epoch["train_time_s"] / ITERS
+    print(f"phase 21 (a): torch.distributed.run --nproc_per_node 1 -m "
+          f"nextou_tpu_torch.run_training, 1 epoch x {ITERS}: {run_s:.1f} s of command time; "
+          f"log: '{line.split(' ', 2)[-1]}'; first step's loss {epoch['first_step_loss']!r} "
+          f"(phase 14, no launcher: {ref['first_step_loss']!r}); all-reduces in the train "
+          f"steps {epoch['train_all_reduces']}; {per_iter:.3f} s per iteration in epoch 0 "
+          f"(phase 14: {ref['train_time_s'] / ITERS:.3f} in epoch 0, "
+          f"{trained['s_per_iter']:.3f} in epoch 1)")
+    if "world size 1, backend nccl, local batch 2" not in line:
+        raise AssertionError(f"the one-rank run logged '{line}'")
+    if epoch["first_step_loss"] != ref["first_step_loss"] or epoch["train_all_reduces"]:
+        raise AssertionError("one NCCL rank is not the one-process step")
+    for name in ("checkpoint_final.pth", "checkpoint_best.pth", "validation/summary.json"):
+        if not os.path.exists(os.path.join(out, name)):
+            raise AssertionError(f"rank 0 wrote no {name}")
+
+
+def two_ranks_phase(dev, tmp: str) -> dict:
+    """Phase 21 (b): two gloo ranks sharing the card, one flagship sample
+    each, against one process at the same global batch. Returns the K3 and
+    K4 launches of the ranks and of the one process."""
+    import torch.multiprocessing as mp
+
+    from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_idx_cuda
+    from nextou_tpu_torch.models.presets import flagship_3d_spec
+
+    t0 = time.time()
+    ctx = mp.start_processes(_dp_rank, args=(_free_port(), tmp), nprocs=DP_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + 600
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError("the two ranks did not finish in 600 s")
+    ranks = [torch.load(os.path.join(tmp, f"dp_rank{r}.pt"), weights_only=False)
+             for r in range(DP_WORLD)]
+    ranks_s = time.time() - t0
+    spec = flagship_3d_spec(num_classes=14, deep_supervision=True)
+    state, step = _dp_state(dev, spec)
+    for counter in (knn_max_idx_cuda, knn_max_bwd_cuda):
+        counter.launches = 0
+    one = []
+    for batch in _dp_batches(spec):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        one.append({"s": time.time() - t1, "loss": metrics["loss"].item(),
+                    "grad_norm": metrics["grad_norm"].item()})
+    one_k3, one_k4 = knn_max_idx_cuda.launches, knn_max_bwd_cuda.launches
+    del state, step
+    for r, run in enumerate(ranks):
+        for i, row in enumerate(run["rows"]):
+            print(f"phase 21 (b) rank {r} ({run['backend']}, {run['device']}), step {i}: loss "
+                  f"{row['loss']:.6f} grad_norm {row['grad_norm']:.4f}, {row['s']:.3f} s; "
+                  f"{row['all_reduces']} all-reduces, {row['all_reduce_ms']:.1f} ms in them; "
+                  f"K3 {row['k3']} K4 {row['k4']} K1 {row['k1']}")
+        print(f"  rank {r}: peak device memory {run['peak_bytes'] / 2**30:.2f} GiB")
+    for i, row in enumerate(one):
+        print(f"phase 21 (b) one process, batch {TRAIN_BATCH}, step {i}: loss {row['loss']:.6f} "
+              f"grad_norm {row['grad_norm']:.4f}, {row['s']:.3f} s")
+    first, want = ranks[0]["rows"][0], one[0]
+    loss_off = abs(first["loss"] - want["loss"]) / abs(want["loss"])
+    norm_off = abs(first["grad_norm"] - want["grad_norm"]) / abs(want["grad_norm"])
+    same = all(run["digests"][0] == run["digests"][1] for run in ranks)
+    print(f"phase 21 (b): first loss off by {loss_off:.2e}, gradient norm by {norm_off:.2e} "
+          f"(relative); parameters and buffers bit-equal across the ranks after {DP_STEPS} "
+          f"steps: {same}; {ranks_s:.1f} s for the two ranks incl. start")
+    if loss_off > 1e-2 or norm_off > 2e-2 or not same:
+        raise AssertionError("two ranks of one sample are not one process of two")
+    for run in ranks:
+        if any((row["k3"], row["k4"], row["k1"]) != (14, 14, 0) for row in run["rows"]):
+            raise AssertionError(f"per-step launches on a rank: {run['rows']}")
+    if (one_k3, one_k4) != (14 * DP_STEPS, 14 * DP_STEPS):
+        raise AssertionError(f"one process: K3 {one_k3} K4 {one_k4}")
+    print(f"phase 21 (b): {time.time() - t0:.1f} s")
+    return {"k3": 14 * DP_STEPS * (DP_WORLD + 1), "k4": 14 * DP_STEPS * (DP_WORLD + 1)}
+
+
+def all_devices_phase(dev, tmp: str, spec, shape) -> int:
+    """Phase 21 (c): ``predict.main --all-devices`` on phase 5's first case
+    against the same call without it (one card: the seg bit for bit).
+    Returns K1's launches."""
+    from nextou_tpu_torch import predict
+    from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
+    from nextou_tpu_torch.kernels.knn import knn_max_cuda
+
+    config = "3d_fullres_nextou"
+    data_dir, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+    tiles = math.prod(len(s) for s in compute_sliding_window_steps(shape, spec.patch_size))
+    forwards = math.ceil(tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
+    outs, launches = {}, 0
+    for flag in ([], ["--all-devices"]):
+        out = os.path.join(tmp, f"all_devices_{bool(flag)}")
+        knn_max_cuda.launches = 0
+        t0 = time.time()
+        predict.main([model_dir, data_dir, config, "-tr", "nnUNetTrainer_NexToU", "-o", out,
+                      "--cases", "case_000", "--tile-batch", str(TILE_BATCH),
+                      "--device", str(dev), *flag])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        if knn_max_cuda.launches != 14 * forwards:
+            raise AssertionError(f"predict.main {flag}: K1 launched {knn_max_cuda.launches} times")
+        launches += knn_max_cuda.launches
+        with np.load(os.path.join(out, "case_000.npz")) as z:
+            outs[bool(flag)] = z["seg"]
+        print(f"phase 21 (c): predict.main {' '.join(flag) or '(no flag)'} on "
+              f"{torch.cuda.device_count()} card(s): {seconds:.2f} s, K1 {14 * forwards}")
+    same = outs[False].dtype == outs[True].dtype and np.array_equal(outs[False], outs[True])
+    print(f"phase 21 (c): --all-devices seg bit-equal to the plain call's: {same}")
+    if not same:
+        raise AssertionError("--all-devices on one card differs from the plain call")
+    return launches
 
 
 # --- raw serving, host accumulation, fold ensembles (phases 15-17) ---------------------
@@ -2511,6 +2772,9 @@ def main() -> int:
         # two cases of 64x280x240: 2 x 2 tiles of the 64x224x192 patch each
         sl = slice_phase(dev, tmp, flagship_3d_spec(num_classes=14), (64, 280, 240))
         torch.cuda.empty_cache()
+        all_devices_k1 = all_devices_phase(dev, tmp, flagship_3d_spec(num_classes=14),
+                                           (64, 280, 240))
+        torch.cuda.empty_cache()
         sl5 = conv_serving_phase(dev, tmp, flagship_3d_spec(num_classes=14), (64, 280, 240))
         torch.cuda.empty_cache()
         raw = raw_serving_phase(dev, tmp, flagship_3d_spec(num_classes=14))
@@ -2531,6 +2795,12 @@ def main() -> int:
         trained = trainer_phase(dev, tmp)
         torch.cuda.empty_cache()
         device_augment_phase(dev, tmp)
+        torch.cuda.empty_cache()
+        t_phase = time.time()
+        one_rank_phase(tmp, trained)
+        torch.cuda.empty_cache()
+        dp = two_ranks_phase(dev, tmp)
+        print(f"phase 21 (a, b): {time.time() - t_phase:.1f} s")
     torch.cuda.empty_cache()
     tools = tools_phase(dev)
     records["conv_probe"], records["knn_dissect"] = tools["conv_probe"], tools["knn_dissect"]
@@ -2554,18 +2824,21 @@ def main() -> int:
     sources = {
         "knn_max": ("knn_max.cu", "nextou_tpu/kernels/knn.py:40",
                     sl["launches"] + raw["launches"] + host["launches"] + ens["launches"]
-                    + trained["k1"] + nets["k1"] + cascade["k1"],
-                    "flagship predict: preprocessed, raw, over the budget, fold ensembles; "
-                    "the trainer's eval steps and validation; the plain Grapher; the cascade "
-                    "stage's eval steps, validation and predict -prev (preprocessed, raw)"),
+                    + trained["k1"] + nets["k1"] + cascade["k1"] + all_devices_k1,
+                    "flagship predict: preprocessed, raw, over the budget, fold ensembles, "
+                    "--all-devices and without; the trainer's eval steps and validation; the "
+                    "plain Grapher; the cascade stage's eval steps, validation and predict -prev "
+                    "(preprocessed, raw)"),
         "knn_indices": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:184", k2_launches,
                         "small dilated network, train steps"),
         "knn_max_idx": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:278",
-                        tr["k3"] + trained["k3"] + cascade["k3"],
-                        "flagship train steps; the trainer's; the cascade stage's"),
+                        tr["k3"] + trained["k3"] + cascade["k3"] + dp["k3"],
+                        "flagship train steps; the trainer's; the cascade stage's; two gloo "
+                        "ranks' and their one process's"),
         "knn_max_bwd": ("knn_max_bwd.cu", "nextou_tpu/kernels/knn.py:384",
-                        tr["k4"] + trained["k4"] + cascade["k4"],
-                        "flagship train steps; the trainer's; the cascade stage's"),
+                        tr["k4"] + trained["k4"] + cascade["k4"] + dp["k4"],
+                        "flagship train steps; the trainer's; the cascade stage's; two gloo "
+                        "ranks' and their one process's"),
         "conv3d": ("conv3d.cu", "nextou_tpu/kernels/conv.py:90",
                    sl5["launches"] + tr5["launches"] + nets["k5"],
                    "flagship predict and train steps with conv_kernel='1'; the 3d_lowres "

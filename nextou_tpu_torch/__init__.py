@@ -12,6 +12,8 @@ every module here is tested against.
 - ``data``     NIfTI I/O, preprocessing and resampling; preprocessed cases,
                sampling, augmentation and the loader
 - ``compat``   weights from ``nextou_tpu`` variables
+- ``parallel`` data parallel over processes (``torch.distributed``), replicas
+               over a process's cards
 - ``predict``  the prediction CLI (preprocessed or raw cases, fold ensembles);
   ``ensemble``, ``postprocess``, ``evaluate_folder`` and ``run_training``
 """

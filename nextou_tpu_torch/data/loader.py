@@ -10,8 +10,9 @@ plans on the card. Threads (not
 processes), because the heavy lifting is NumPy, SciPy and the native
 resampler, which release the GIL, and the card's work overlaps the host's
 anyway. Each thread draws from its own ``numpy`` generator (seed + 1000 x
-its index): with one thread the batch order is fully determined by the
-seed; with more it depends on scheduling.
+its index) into its own queue, and batches are served from the threads in
+turn: the batch sequence is a function of the seed and the thread count,
+whatever the scheduling.
 """
 
 from __future__ import annotations
@@ -70,7 +71,10 @@ class PatchDataLoader:
         self._rngs = [
             np.random.default_rng(seed + 1000 * i) for i in range(self.num_threads)
         ]
-        self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        # one queue per thread, served in turn
+        self._qs = [queue.Queue(maxsize=max(1, prefetch // self.num_threads))
+                    for _ in range(self.num_threads)]
+        self._turn = 0
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
         self._errors: list[BaseException] = []
@@ -88,9 +92,9 @@ class PatchDataLoader:
             # lock (the sampler's case cache has its own insert lock)
             data, seg, prev = self.sampler.sample_batch(rng=rng)
             if self.device_augment:
-                self._put(self._plan_batch(data, seg, prev, rng))
+                self._put(tid, self._plan_batch(data, seg, prev, rng))
             else:
-                self._put(self._host_batch(data, seg, prev, rng))
+                self._put(tid, self._host_batch(data, seg, prev, rng))
 
     def _plan_batch(self, data, seg, prev, rng) -> dict:
         if prev is not None:
@@ -122,10 +126,10 @@ class PatchDataLoader:
             "seg": seg.astype(np.int32),
         }
 
-    def _put(self, batch: dict):
+    def _put(self, tid: int, batch: dict):
         while not self._stop.is_set():
             try:
-                self._q.put(batch, timeout=0.25)
+                self._qs[tid].put(batch, timeout=0.25)
                 return
             except queue.Full:
                 continue
@@ -152,9 +156,8 @@ class PatchDataLoader:
     def __next__(self):
         # a producer that died (a corrupt case, a missing prev-stage file) must
         # surface its exception promptly — checked BEFORE serving the next
-        # batch (a surviving second thread can keep the queue non-empty
-        # forever, which would bury the error), and polled with a timeout
-        # instead of blocking forever on an empty queue.
+        # batch, and polled with a timeout instead of blocking forever on the
+        # dead thread's empty queue.
         while True:
             if self._errors:
                 self._stop.set()
@@ -162,7 +165,9 @@ class PatchDataLoader:
                     "PatchDataLoader producer thread failed"
                 ) from self._errors[0]
             try:
-                return self._q.get(timeout=1.0)
+                batch = self._qs[self._turn].get(timeout=1.0)
+                self._turn = (self._turn + 1) % self.num_threads
+                return batch
             except queue.Empty:
                 if self._threads and not any(
                     t.is_alive() for t in self._threads

@@ -110,6 +110,25 @@ def make_tile_predictor(
     return tile_forward
 
 
+def replicated_forward(models: Sequence[torch.nn.Module]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``tiles (T, ...) -> logits (T, ...)`` with the tiles split over
+    ``models``, one replica of a network per device (``parallel/mesh.py::
+    replicate_to``), in equal chunks in order: every chunk is launched on its
+    device before any is gathered, and the logits are gathered on the first
+    device. The counterpart of the JAX package's tile batch sharded over a
+    mesh (``--all-devices``)."""
+    devices = [next(m.parameters()).device for m in models]
+
+    def forward(tiles: torch.Tensor) -> torch.Tensor:
+        chunks = tiles.chunk(len(models))
+        if len(chunks) != len(models):
+            raise ValueError(f"{tiles.shape[0]} tiles do not split over {len(models)} devices")
+        outs = [m(c.to(d, non_blocking=True)) for m, c, d in zip(models, chunks, devices)]
+        return torch.cat([o.to(devices[0]) for o in outs])
+
+    return forward
+
+
 def _tile_batches(coords: list, tile_batch: int, patch: tuple):
     """``(slices, n_real)`` per tile batch; each batch is padded to
     ``tile_batch`` tiles with copies of its last tile, so every forward has

@@ -196,16 +196,20 @@ def describe_plan(plan: dict) -> str:
             f"{plan['k_steps']} k steps")
 
 
-def library_plan(lib_name: str, args: tuple) -> dict:
-    """The plan as the library computes it (``{lib_name}_plan(*args)``):
+def library_plan(lib_name: str, args: tuple, device: torch.device | None = None) -> dict:
+    """The plan as the library computes it (``{lib_name}_plan(*args)``) for
+    ``device``, the current card by default (the plan reads its SM count):
     the :data:`PLAN_KEYS`. Raises where the shape has none."""
-    return dict(_library_plan(lib_name, tuple(int(a) for a in args)))
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    return dict(_library_plan(lib_name, tuple(int(a) for a in args), index))
 
 
 @functools.cache
-def _library_plan(lib_name: str, args: tuple) -> tuple:
+def _library_plan(lib_name: str, args: tuple, device: int) -> tuple:
     out = (ctypes.c_int * len(PLAN_KEYS))()
-    rc = getattr(library(lib_name), f"{lib_name}_plan")(*args, ctypes.cast(out, ctypes.c_void_p))
+    plan = getattr(library(lib_name), f"{lib_name}_plan")
+    with torch.cuda.device(device):
+        rc = plan(*args, ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
         raise ValueError(f"{lib_name}_plan{args}: no plan (CUDA error {rc})")
     return tuple(zip(PLAN_KEYS, out))
@@ -258,7 +262,7 @@ def conv3d_cuda(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int]) -> torc
     bf16 = int(x.dtype == torch.bfloat16)
     scratch = None
     if bf16:  # the bf16 kernel reads the weights packed; it packs them itself
-        plan = library_plan("conv3d", (B, C, *x.shape[2:], Co, *kernel, *stride))
+        plan = library_plan("conv3d", (B, C, *x.shape[2:], Co, *kernel, *stride), dev)
         scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         rc = lib.conv3d_forward(

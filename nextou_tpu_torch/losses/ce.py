@@ -2,12 +2,16 @@
 of ``nextou_tpu/losses/ce.py``.
 
 Equivalent of nnU-Net's ``RobustCrossEntropyLoss``: mean over the voxels
-that are not ignored. Computed in f32 whatever the logits' dtype.
+that are not ignored. Computed in f32 whatever the logits' dtype. Under
+data parallel the mean is over the global batch's voxels: a sum and a count
+summed over the ranks (``parallel/distributed.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from nextou_tpu_torch.parallel.distributed import mean_over_ranks
 
 
 def cross_entropy_elementwise(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -27,7 +31,5 @@ def cross_entropy_loss(
     ignore_index: int | None = None,
 ) -> torch.Tensor:
     ce = cross_entropy_elementwise(logits, target)
-    if ignore_index is None:
-        return ce.mean()
-    mask = (target != ignore_index).float()
-    return (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    mask = None if ignore_index is None else (target != ignore_index).float()
+    return mean_over_ranks(ce, mask, 1.0)

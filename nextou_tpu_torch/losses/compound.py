@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from nextou_tpu_torch.losses.ce import cross_entropy_loss
 from nextou_tpu_torch.losses.dice import region_soft_dice_loss, soft_dice_loss
 from nextou_tpu_torch.losses.ti import TILossSpec, ti_loss
+from nextou_tpu_torch.parallel.distributed import mean_over_ranks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,14 +83,11 @@ def dc_ce_ti_loss(
         if spec.weight_ce != 0:  # BCE plays CE's role in region mode
             lf = logits.float()
             bce = -(tgt_r * F.logsigmoid(lf) + (1.0 - tgt_r) * F.logsigmoid(-lf))
-            if loss_mask is not None:
-                # nnU-Net's DC_and_BCE_loss: (bce * mask).sum() / mask.sum();
-                # the mask broadcasts over the R region channels in the
-                # numerator while the denominator counts each voxel once
-                m = loss_mask.float().unsqueeze(-1)
-                total = total + spec.weight_ce * ((bce * m).sum() / m.sum().clamp(min=1e-8))
-            else:
-                total = total + spec.weight_ce * bce.mean()
+            # nnU-Net's DC_and_BCE_loss with a mask: (bce * mask).sum() /
+            # mask.sum(); the mask broadcasts over the R region channels in
+            # the numerator while the denominator counts each voxel once
+            m = None if loss_mask is None else loss_mask.float().unsqueeze(-1)
+            total = total + spec.weight_ce * mean_over_ranks(bce, m, 1e-8)
         return total
 
     if spec.weight_dice != 0:

@@ -3,13 +3,25 @@
 
 Equivalent of nnU-Net's ``MemoryEfficientSoftDiceLoss`` with the settings
 the NexToU trainers use (batch_dice per plans, smooth 1e-5, do_bg False).
-The all-reduce of the statistics over data-parallel ranks comes with data
-parallel training and is not ported yet.
+Under data parallel (more than one rank, ``parallel/distributed.py``) the
+loss is the global batch's on every rank, as under the JAX package's
+sharded step: batch Dice sums its statistics over the ranks (the JAX
+``axis_name`` psums), per-sample Dice takes its mean over every rank's
+samples.
 """
 
 from __future__ import annotations
 
 import torch
+
+from nextou_tpu_torch.parallel.distributed import mean_over_ranks, sum_over_ranks, world_size
+
+
+def _batch_sums(*stats: torch.Tensor) -> list[torch.Tensor]:
+    """Batch Dice's statistics summed over the batch, and over the ranks
+    under data parallel."""
+    stats = [s.sum(0) for s in stats]
+    return stats if world_size() == 1 else sum_over_ranks(*stats)
 
 
 def soft_dice_loss(
@@ -48,9 +60,9 @@ def soft_dice_loss(
     if not do_bg:
         intersect, sum_gt, sum_pred = intersect[:, 1:], sum_gt[:, 1:], sum_pred[:, 1:]
     if batch_dice:
-        intersect, sum_gt, sum_pred = intersect.sum(0), sum_gt.sum(0), sum_pred.sum(0)
+        intersect, sum_gt, sum_pred = _batch_sums(intersect, sum_gt, sum_pred)
     dc = (2.0 * intersect + smooth) / (sum_gt + sum_pred + smooth).clamp(min=1e-8)
-    return -dc.mean()
+    return -dc.mean() if batch_dice else -mean_over_ranks(dc)
 
 
 def region_soft_dice_loss(
@@ -80,6 +92,6 @@ def region_soft_dice_loss(
     sum_pred = probs.sum(spatial)
     sum_gt = tgt.sum(spatial)
     if batch_dice:
-        intersect, sum_pred, sum_gt = intersect.sum(0), sum_pred.sum(0), sum_gt.sum(0)
+        intersect, sum_pred, sum_gt = _batch_sums(intersect, sum_pred, sum_gt)
     dice = (2.0 * intersect + smooth) / (sum_pred + sum_gt + smooth)
-    return -dice.mean()
+    return -dice.mean() if batch_dice else -mean_over_ranks(dice)

@@ -11,7 +11,7 @@ Algorithm per interaction ``(type, A, C)`` (upstream ``bti_loss.py:76-117``):
   3. dilate both by the connectivity kernel (conv + threshold >= 1);
   4. critical = (dilate(C) and A) or (dilate(A) and C); OR-accumulate.
 Loss = per-voxel CE masked by the critical map, summed over space, meaned
-over batch.
+over batch (the global batch under data parallel).
 
 The critical map is integer work: {0,1} masks and neighbour counts of at
 most 27, exact in f32 (and in TF32, should a card's conv use it), so it is
@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from nextou_tpu_torch.losses.ce import cross_entropy_elementwise
+from nextou_tpu_torch.parallel.distributed import mean_over_ranks
 
 
 def _connectivity_kernel(dim: int, connectivity: int, min_thick: int) -> np.ndarray:
@@ -141,4 +142,4 @@ def ti_loss(
         if loss_mask is not None:
             crit = crit * loss_mask.to(crit.dtype)
     ce = cross_entropy_elementwise(logits, target)
-    return (ce * crit).sum(tuple(range(1, ce.dim()))).mean()
+    return mean_over_ranks((ce * crit).sum(tuple(range(1, ce.dim()))))

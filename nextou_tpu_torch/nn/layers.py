@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nextou_tpu_torch.parallel.distributed import rank, sum_over_ranks, world_size
+
 # He-init gain of upstream's InitWeights_He(neg_slope=1e-2)
 HE_GAIN_SQ = 2.0 / (1.0 + 1e-2 ** 2)
 LEAKY_SLOPE = 1e-2
@@ -120,12 +122,16 @@ def batch_norm(module: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torc
     ``torch.nn.BatchNorm*`` stores the unbiased one. The fused op does the
     update, and its ``n / (n - 1)`` factor is then taken out of the new term.
     ``module.momentum == 0`` leaves both statistics exactly as they are.
+    Under data parallel (more than one rank) the batch statistics are the
+    global batch's (:func:`_batch_norm_over_ranks`).
     """
     if not module.training:
         return F.batch_norm(
             x, module.running_mean, module.running_var, module.weight,
             module.bias, False, 0.0, module.eps,
         )
+    if world_size() > 1:
+        return _batch_norm_over_ranks(module, x)
     n = x.numel() // x.shape[1]
     # the fused op updates a copy: autograd keeps the tensor it was given,
     # which must not change before the backward pass
@@ -138,6 +144,32 @@ def batch_norm(module: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torc
         kept = (1.0 - module.momentum) * module.running_var
         module.running_var.copy_((new_var - kept) * ((n - 1) / n) + kept)
     return y
+
+
+def _batch_norm_over_ranks(module: nn.modules.batchnorm._BatchNorm,
+                           x: torch.Tensor) -> torch.Tensor:
+    """Training-mode BatchNorm whose statistics are those of the global
+    batch, every rank holding a share of it: the per-channel sums and counts
+    summed over the ranks give the mean, then the sums of ``(x - mean)^2``
+    the biased variance (two passes, in f32). The running statistics follow
+    :func:`batch_norm`'s rule and are equal on every rank. Both all-reduces
+    are differentiable, so the gradient reaches every rank's share."""
+    dims = [0, *range(2, x.dim())]
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    xf = x.float()
+    total, count = sum_over_ranks(xf.sum(dims), x.numel() // x.shape[1])
+    mean = total / count
+    centred = xf - mean.reshape(shape)
+    (squares,) = sum_over_ranks(centred.square().sum(dims))
+    var = squares / count
+    y = centred * torch.rsqrt(var + module.eps).reshape(shape)
+    y = y * module.weight.reshape(shape) + module.bias.reshape(shape)
+    if module.momentum:
+        with torch.no_grad():
+            m = module.momentum
+            module.running_mean.copy_((1.0 - m) * module.running_mean + m * mean)
+            module.running_var.copy_((1.0 - m) * module.running_var + m * var)
+    return y.to(x.dtype)
 
 
 class LastDimBatchNorm(nn.BatchNorm1d):
@@ -174,7 +206,9 @@ class DropPath(nn.Module):
     sample is dropped with probability ``rate`` and the kept ones are scaled
     by ``1 / (1 - rate)``; the identity at eval or with ``rate == 0``. The
     mask is drawn from ``generator`` (a CPU generator: a seed gives the same
-    mask on any device)."""
+    mask on any device). Under data parallel every rank draws the global
+    batch's mask from the same generator state and keeps its own rows, so
+    that the ranks draw what one process of the global batch draws."""
 
     def __init__(self, rate: float, generator: torch.Generator | None):
         super().__init__()
@@ -185,7 +219,8 @@ class DropPath(nn.Module):
         if self.rate <= 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape[0], generator=self.generator) < keep
+        n, r = x.shape[0], rank()
+        mask = torch.rand(n * world_size(), generator=self.generator)[r * n:(r + 1) * n] < keep
         mask = mask.to(x.device).reshape(-1, *([1] * (x.dim() - 1)))
         return torch.where(mask, x / keep, torch.zeros_like(x))
 

@@ -16,7 +16,7 @@ through crop, normalization and resampling to the plans' spacing and back
     python -m nextou_tpu_torch.predict MODEL_FOLDER DATASET_FOLDER CONFIGURATION \\
         -o OUTPUT [--raw] [-f 0 1 ...] [-tr nnUNetTrainer_NexToU]
         [-chk checkpoint_final.pth] [-prev PREV_FOLDER] [--save-probabilities]
-        [-pp postprocessing.json] [--conv-kernel {0,1,s1,s2}] [--device cpu]
+        [-pp postprocessing.json] [--conv-kernel {0,1,s1,s2}] [--all-devices] [--device cpu]
 
 With ``--raw`` the plans (``plans.json``) and ``dataset.json`` are read from
 the model folder, where the trainer writes them. The checkpoint is a torch
@@ -30,9 +30,10 @@ the previous stage's segmentations with ``-prev`` (``{case}.npz`` with
 ``seg``, on this configuration's grid or resampled onto it by order 0) as
 one-hot foreground channels. Computes in bf16 on a CUDA device, which is
 where it runs unless ``--device cpu`` asks for the CPU (f32): without a card
-and without that option it fails.
-
-Not ported yet: ``--all-devices``.
+and without that option it fails. ``--all-devices`` holds a replica of the
+network on every visible card and splits each forward's tiles over them
+(the tile batch rounded up to a multiple of their count); with one card it
+is the one-card path.
 """
 
 from __future__ import annotations
@@ -54,12 +55,14 @@ from nextou_tpu_torch.infer.raw import predict_raw_folder
 from nextou_tpu_torch.infer.sliding_window import (
     make_device_sliding_predictor,
     make_tile_predictor,
+    replicated_forward,
     sliding_window_predict,
 )
 from nextou_tpu_torch.models.nextou import NexToU
 from nextou_tpu_torch.models.plans_network import plans_network_spec
 from nextou_tpu_torch.models.spec import ModelSpec
 from nextou_tpu_torch.nn.conv_blocks import CONV_KERNEL_MODES
+from nextou_tpu_torch.parallel.mesh import local_devices, replicate_to
 from nextou_tpu_torch.paths import resolve_preprocessed, resolve_raw
 from nextou_tpu_torch.postprocess import apply_postprocessing
 from nextou_tpu_torch.plans.loader import PlansManager, load_dataset_json
@@ -177,10 +180,16 @@ def build_predictor(
     output: str = "probs",
     step_size: float = 0.5,
     activation: str = "softmax",
+    devices: Sequence[torch.device] | None = None,
 ) -> Callable[[np.ndarray], np.ndarray]:
     """``data (*sp, C_in) -> probs (*sp, num_classes) f32``, or with
     ``output='seg'`` (label mode) the argmax ``(*sp)`` as uint8 (int16 above
-    255 classes), every forward on the model's device.
+    255 classes), every forward on the model's device. With several
+    ``devices`` (the model's own first) a replica of the model lies on each,
+    the tile batch is rounded up to a multiple of their count and each
+    forward's tiles are split over them
+    (:func:`~nextou_tpu_torch.infer.sliding_window.replicated_forward`); the
+    accumulators stay on the first.
 
     The accumulators stay on the device while ``vox * (num_classes + 1 +
     C_in) * 4`` bytes fit ``ACC_BUDGET_BYTES``, and live in host memory above
@@ -190,9 +199,13 @@ def build_predictor(
     spec = model.spec
     device = next(model.parameters()).device
     patch, ncls = tuple(spec.patch_size), spec.num_classes
-    tile_pred = make_tile_predictor(model, mirror_axes, activation)
+    apply = model
+    if devices is not None and len(devices) > 1:
+        apply = replicated_forward(replicate_to(model, devices))
+        tile_batch = -(-tile_batch // len(devices)) * len(devices)
+    tile_pred = make_tile_predictor(apply, mirror_axes, activation)
     device_pred = make_device_sliding_predictor(
-        model, mirror_axes, patch, ncls, device=device,
+        apply, mirror_axes, patch, ncls, device=device,
         tile_batch=tile_batch, activation=activation, output=output,
         step_fraction=step_size,
     )
@@ -226,6 +239,7 @@ def build_fold_ensemble_predictor(
     output: str = "probs",
     step_size: float = 0.5,
     activation: str = "softmax",
+    devices: Sequence[torch.device] | None = None,
 ) -> Callable[[np.ndarray], np.ndarray]:
     """Average the sliding-window probabilities of several folds' models,
     nnU-Net's ``-f 0 1 2 3 4`` cross-validation ensemble (softmax averaged
@@ -235,7 +249,7 @@ def build_fold_ensemble_predictor(
         output = "probs"
     predictors = [
         build_predictor(m, mirror_axes, tile_batch=tile_batch, output=output,
-                        step_size=step_size, activation=activation)
+                        step_size=step_size, activation=activation, devices=devices)
         for m in models
     ]
     if len(predictors) == 1:
@@ -322,6 +336,9 @@ def main(argv=None):
     ap.add_argument("--conv-kernel", choices=CONV_KERNEL_MODES, default="0",
                     help="hand the convs of the hand-written conv kernel's region to it: "
                     "all (1), the stride-1 ones (s1) or the strided ones (s2)")
+    ap.add_argument("--all-devices", action="store_true",
+                    help="split each forward's tiles over every visible card, one replica of "
+                    "the network on each")
     ap.add_argument("--device", default="cuda",
                     help="the card by default; 'cpu' computes on the CPU in f32")
     args = ap.parse_args(argv)
@@ -366,6 +383,7 @@ def main(argv=None):
         tile_batch=args.tile_batch, step_size=args.step_size,
         output="seg" if want_seg else "probs",
         activation="sigmoid" if regions else "softmax",
+        devices=local_devices(device) if args.all_devices else None,
     )
     if args.raw:
         prev_seg_loader = None

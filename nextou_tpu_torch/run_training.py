@@ -20,6 +20,15 @@ device inside the train step (``data/device_augment.py``; on the CPU with
 ``auto`` (the default) is on for the card and off on the CPU. A cascade
 configuration keeps host augmentation either way. Both give the same
 batches for one seed, within float rounding.
+
+Data parallel: under ``torch.distributed.run`` each process is one rank
+(``parallel/distributed.py``); it joins the process group its launcher
+describes, trains on its own card (``cuda:LOCAL_RANK``), or on the CPU with
+``--device cpu``, with its share of the global ``--batch-size``, and leaves
+the group at the end. Only rank 0 writes. Two ranks on the CPU::
+
+    python -m torch.distributed.run --nproc_per_node 2 -m nextou_tpu_torch.run_training \
+        DATASET_FOLDER 2d_tiny 0 --device cpu --epochs 1 --iters 2
 """
 
 from __future__ import annotations
@@ -61,6 +70,23 @@ def main(argv=None):
                     help="the card by default; 'cpu' trains on the CPU in f32")
     args = ap.parse_args(argv)
 
+    import torch.distributed as dist
+
+    from nextou_tpu_torch.parallel import initialize_distributed, launched, rank_device
+
+    # a launched rank joins its group here and leaves it at the end; a group
+    # that the caller made stays the caller's
+    own_group = launched() and not dist.is_initialized()
+    if own_group:
+        initialize_distributed(args.device)
+    try:
+        return _train(args, rank_device(args.device))
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, device):
     from nextou_tpu_torch.plans import load_dataset_json
     from nextou_tpu_torch.train import get_trainer_class
 
@@ -70,7 +96,7 @@ def main(argv=None):
         args.dataset_folder, f"{args.trainer}__{args.configuration}__fold_{fold}")
     trainer = get_trainer_class(args.trainer)(
         plans_path, args.configuration, fold, load_dataset_json(args.dataset_folder),
-        preprocessed_folder=args.dataset_folder, output_folder=output, device=args.device,
+        preprocessed_folder=args.dataset_folder, output_folder=output, device=device,
         num_epochs=args.epochs, num_iterations_per_epoch=args.iters, batch_size=args.batch_size,
         device_da={"auto": "auto", "on": True, "off": False}[args.device_da],
     )

@@ -137,7 +137,7 @@ def conv_cl_cuda(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int]) -> tor
     bf16 = int(x.dtype == torch.bfloat16)
     scratch = None
     if bf16:  # the bf16 kernel reads the weights packed; it packs them itself
-        plan = library_plan("conv_cl", (N, *x.shape[1:4], C, Co, *kernel, *stride))
+        plan = library_plan("conv_cl", (N, *x.shape[1:4], C, Co, *kernel, *stride), dev)
         scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         rc = lib.conv_cl_forward(

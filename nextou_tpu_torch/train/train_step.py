@@ -6,6 +6,13 @@ weights to the compute dtype, so the gradients arrive in f32, and no
 ``augment`` config the step also augments: it uploads the loader's raw
 initial-size patches and applies their host-drawn plans on the model's
 device (``data/device_augment.py``) before the forward.
+
+Under data parallel (``parallel/distributed.py``) each rank's batch is its
+share of the global batch; the loss and the BatchNorm statistics are the
+global batch's, and the gradients are averaged over the ranks before the
+update, so that the step is the one-process step at the global batch. The
+eval step's ``tp``/``fp``/``fn`` stay this rank's: the trainer sums them
+over the ranks once per epoch.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from nextou_tpu_torch.losses import (
     deep_supervised_loss,
     region_targets,
 )
+from nextou_tpu_torch.parallel.distributed import average_gradients, world_size
 from nextou_tpu_torch.train.optimizer import SGD
 from nextou_tpu_torch.train.state import TrainState
 
@@ -82,6 +90,12 @@ def make_train_step(
         # a head whose output has weight 0 gets no gradient: zeros, so that
         # weight decay and momentum still see it
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if world_size() > 1:
+            # each rank's loss is the global loss, so its gradient is the
+            # world size times its share: the mean over the ranks is the
+            # one-process gradient at the global batch, the same bits on
+            # every rank before the clip and the update
+            grads = average_gradients(grads)
         norm = optimizer.update(grads, state.momentum, params, state.step)
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": norm}
@@ -94,10 +108,11 @@ def make_eval_step(
     loss_spec: CompoundLossSpec,
     ds_weights: Sequence[float] | None = None,
 ) -> Callable[[TrainState, dict], dict]:
-    """Validation step: the deep-supervised loss and the global hard-Dice
-    statistics (tp/fp/fn per foreground class, or per region, on the
-    full-resolution prediction), as nnU-Net's validation_step. Voxels with
-    the ignore label count nowhere."""
+    """Validation step: the deep-supervised loss and the hard-Dice
+    statistics of the batch (tp/fp/fn per foreground class, or per region,
+    on the full-resolution prediction), as nnU-Net's validation_step. Voxels
+    with the ignore label count nowhere. Under data parallel the loss is the
+    global batch's and the statistics this rank's."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:

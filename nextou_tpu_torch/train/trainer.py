@@ -27,8 +27,16 @@ threads only draw each sample's augmentation plan and the train step
 augments on the device (``data/device_augment.py``), to the host path's
 batch; otherwise the threads augment on the host (``data/augment.py``).
 
-Not ported yet, raising ``NotImplementedError``: data-parallel training over
-several processes (ROADMAP M10).
+Data parallel (``parallel/``): launched by ``torch.distributed.run``, each
+rank trains on its own device with ``local_share(batch_size)`` of the
+global batch, its loaders seeded ``seed + 9973 * rank``; rank 0's
+parameters are broadcast after the initialization, and the BatchNorm
+statistics, the losses and the gradients are the global batch's, so a step
+is the one-process step at the global batch (the JAX trainer's sharded
+step). The pseudo-Dice statistics are summed over the ranks once per epoch;
+every rank then makes the same EMA and checkpoint choices. Only rank 0
+prints, writes the log, the plot, the checkpoints and the final validation,
+which the other ranks wait for.
 """
 
 from __future__ import annotations
@@ -53,6 +61,15 @@ from nextou_tpu_torch.losses import CompoundLossSpec, deep_supervision_weights
 from nextou_tpu_torch.models import NexToU
 from nextou_tpu_torch.models.plans_network import plans_network_spec
 from nextou_tpu_torch.nn.conv_blocks import check_conv_kernel
+from nextou_tpu_torch.parallel import (
+    all_reduce,
+    barrier,
+    broadcast_module,
+    is_lead,
+    local_share,
+    rank,
+    world_size,
+)
 from nextou_tpu_torch.plans import PlansManager
 from nextou_tpu_torch.predict import compute_dtype
 from nextou_tpu_torch.train.checkpoint import load_checkpoint, restore_pretrained, save_checkpoint
@@ -242,12 +259,6 @@ class NexToUTrainer:
                 f"on the '{prev}' model first")
         return folder
 
-    def _check_ported(self) -> None:
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "data-parallel training over several processes is not ported yet (ROADMAP M10)")
-
     # ------------------------------------------------------------------ #
     # initialization
     # ------------------------------------------------------------------ #
@@ -255,12 +266,13 @@ class NexToUTrainer:
     def initialize(self):
         if self._initialized:
             return self
-        self._check_ported()
+        # this rank's share of the global batch (raises on an uneven split)
+        self.local_batch_size = local_share(self.batch_size)
         self._resolve_device_da()
         self.model_spec = self.build_network_spec()
         if self.remat == "auto":
             probe = NexToU(self.model_spec, device="meta")
-            estimate = probe.compute_conv_feature_map_size() * self.batch_size * 2 * 6
+            estimate = probe.compute_conv_feature_map_size() * self.local_batch_size * 2 * 6
             del probe
             self.remat, reason = auto_remat(estimate, self.device)
             self.print_to_log_file(
@@ -276,16 +288,20 @@ class NexToUTrainer:
         self.optimizer = make_optimizer(schedule, weight_decay=self.weight_decay,
                                         clip_norm=self.grad_clip_norm)
         self.state = create_train_state(self.network, self.optimizer, self.seed)
+        # the JAX trainer's replicate: rank 0's parameters and statistics on
+        # every rank (each also initialized them from the same seed)
+        broadcast_module(self.network)
         self.train_step = make_train_step(
             self.network, self.optimizer, self.loss_spec, self.ds_weights,
             augment=self._augment_config() if self.device_da else None)
         self.eval_step = make_eval_step(self.network, self.loss_spec, self.ds_weights)
         # plans + dataset.json beside the checkpoints, as the substrate does
-        os.makedirs(self.output_folder, exist_ok=True)
-        with open(os.path.join(self.output_folder, "plans.json"), "w") as f:
-            json.dump(self.plans_manager.plans, f, indent=2, default=float)
-        with open(os.path.join(self.output_folder, "dataset.json"), "w") as f:
-            json.dump(self.dataset_json, f, indent=2)
+        if is_lead():
+            os.makedirs(self.output_folder, exist_ok=True)
+            with open(os.path.join(self.output_folder, "plans.json"), "w") as f:
+                json.dump(self.plans_manager.plans, f, indent=2, default=float)
+            with open(os.path.join(self.output_folder, "dataset.json"), "w") as f:
+                json.dump(self.dataset_json, f, indent=2)
         self._initialized = True
         return self
 
@@ -309,8 +325,11 @@ class NexToUTrainer:
                 splits = json.load(f)
         else:
             splits = make_splits(dataset.case_ids)
-            with open(splits_path, "w") as f:
-                json.dump(splits, f)
+            if is_lead():
+                # whole or absent for a rank that reads it meanwhile
+                with open(splits_path + ".tmp", "w") as f:
+                    json.dump(splits, f)
+                os.replace(splits_path + ".tmp", splits_path)
         fold = splits[int(self.fold)]
         return dataset.subset(fold["train"]), dataset.subset(fold["val"])
 
@@ -324,16 +343,19 @@ class NexToUTrainer:
         sampler_patch = initial_patch_size(patch, aug.rotation_rad, aug.dummy_2d, aug.scale_range)
         self.print_to_log_file(f"{'device' if self.device_da else 'host'} DA: initial patch "
                                f"size {sampler_patch} -> {patch}")
-        train_sampler = PatchSampler(train_ds, sampler_patch, self.batch_size,
-                                     self.oversample_foreground_percent, seed=self.seed)
-        val_sampler = PatchSampler(val_ds, patch, self.batch_size,
-                                   self.oversample_foreground_percent, seed=self.seed + 1)
+        # each rank loads its share of the global batch from its own seeds
+        # (the JAX trainer's seed + 9973 * process index)
+        batch, seed = local_share(self.batch_size), self.seed + 9973 * rank()
+        train_sampler = PatchSampler(train_ds, sampler_patch, batch,
+                                     self.oversample_foreground_percent, seed=seed)
+        val_sampler = PatchSampler(val_ds, patch, batch,
+                                   self.oversample_foreground_percent, seed=seed + 1)
         onehot = tuple(self.label_manager.foreground_labels) if self._cascade() else None
-        train_loader = PatchDataLoader(train_sampler, augment=aug, seed=self.seed,
+        train_loader = PatchDataLoader(train_sampler, augment=aug, seed=seed,
                                        num_threads=self.loader_threads, onehot_labels=onehot,
                                        cascade_noise=self._cascade(),
                                        device_augment=self.device_da)
-        val_loader = PatchDataLoader(val_sampler, augment=None, seed=self.seed + 7,
+        val_loader = PatchDataLoader(val_sampler, augment=None, seed=seed + 7,
                                      num_threads=self.loader_threads, onehot_labels=onehot)
         return train_loader, val_loader
 
@@ -342,6 +364,8 @@ class NexToUTrainer:
     # ------------------------------------------------------------------ #
 
     def print_to_log_file(self, *msgs):
+        if not is_lead():
+            return  # data parallel: only rank 0 prints and logs
         line = " ".join(str(m) for m in msgs)
         print(line, flush=True)
         os.makedirs(self.output_folder, exist_ok=True)
@@ -383,6 +407,11 @@ class NexToUTrainer:
             f"on {self.device} ({str(self.compute_dtype)[6:]}): {self.num_epochs} epochs x "
             f"{self.num_iterations_per_epoch} iters, batch {self.batch_size}, "
             f"{self.loader_threads} loader threads of {os.cpu_count()} cores")
+        if torch.distributed.is_initialized():
+            self.print_to_log_file(
+                f"data parallel: world size {world_size()}, backend "
+                f"{torch.distributed.get_backend()}, local batch "
+                f"{self.local_batch_size}")
         zero = lambda: torch.zeros((), dtype=torch.float32, device=self.device)  # noqa: E731
         with train_loader, val_loader:
             train_it, val_it = iter(train_loader), iter(val_loader)
@@ -390,15 +419,20 @@ class NexToUTrainer:
                 self.current_epoch = epoch
                 t0 = time.perf_counter()
                 # the losses add up on the device: nothing is read per step
-                loss_sum, wait = zero(), 0.0
+                loss_sum, first_loss, wait = zero(), None, 0.0
+                reduces = all_reduce.calls
                 for _ in range(self.num_iterations_per_epoch):
                     t = time.perf_counter()
                     batch = next(train_it)
                     wait += time.perf_counter() - t
                     self.state, metrics = self.train_step(self.state, batch)
                     loss_sum += metrics["loss"].float()
+                    if first_loss is None:
+                        first_loss = metrics["loss"].float()
+                # each rank's loss is the global batch's: the same on every rank
                 train_loss = loss_sum.item() / self.num_iterations_per_epoch
                 train_s = time.perf_counter() - t0
+                reduces = all_reduce.calls - reduces
 
                 val_sum, stats = zero(), None
                 for _ in range(self.num_val_iterations_per_epoch):
@@ -408,6 +442,8 @@ class NexToUTrainer:
                     stats = new if stats is None else stats + new
                 n_val = max(1, self.num_val_iterations_per_epoch)
                 val_loss = val_sum.item() / n_val
+                if stats is not None and world_size() > 1:
+                    all_reduce(stats)  # the ranks' sum, once per epoch
                 if stats is None:
                     dice_per_class = np.zeros(0)
                 else:
@@ -428,12 +464,14 @@ class NexToUTrainer:
                 self.log_history.append({
                     "epoch": epoch,
                     "train_loss": train_loss,
+                    "first_step_loss": None if first_loss is None else first_loss.item(),
                     "val_loss": val_loss,
                     "pseudo_dice": [float(d) for d in dice_per_class],
                     "ema_pseudo_dice": self.ema_pseudo_dice,
                     "epoch_time_s": epoch_time,
                     "train_time_s": train_s,
                     "loader_wait_s": wait,
+                    "train_all_reduces": reduces,
                 })
                 self.print_to_log_file(
                     f"epoch {epoch}: train_loss {train_loss:.4f} val_loss {val_loss:.4f} "
@@ -452,8 +490,8 @@ class NexToUTrainer:
     def plot_progress(self):
         """Write ``progress.png`` (the substrate's per-epoch training curve:
         losses, EMA pseudo-Dice, epoch time). Best effort: without
-        matplotlib nothing is plotted."""
-        if not self.log_history:
+        matplotlib nothing is plotted. Only rank 0 plots."""
+        if not self.log_history or not is_lead():
             return
         try:
             import matplotlib
@@ -520,11 +558,22 @@ class NexToUTrainer:
         segmentation is stored as ``validation/{case}.npz`` ('seg', int16),
         with ``save_probabilities`` (the ``--npz`` flag) also its
         probabilities ('probabilities', float16, (*sp, C)). A cascade stage
-        takes each case's previous-stage prediction as its ``-prev`` channels."""
+        takes each case's previous-stage prediction as its ``-prev`` channels.
+        Under data parallel rank 0 validates while the other ranks wait at a
+        barrier, and they return None."""
+        self.initialize()
+        if not is_lead():
+            barrier()
+            return None
+        try:
+            return self._validate(tile_batch, save_probabilities)
+        finally:
+            barrier()
+
+    def _validate(self, tile_batch: int, save_probabilities: bool) -> dict:
         from nextou_tpu_torch.infer.evaluate import evaluate_cases
         from nextou_tpu_torch.predict import onehot_channels
 
-        self.initialize()
         _, val_ds = self.get_split()
         val_dir = os.path.join(self.output_folder, "validation")
         os.makedirs(val_dir, exist_ok=True)
@@ -556,6 +605,8 @@ class NexToUTrainer:
     # ------------------------------------------------------------------ #
 
     def save_checkpoint(self, name: str):
+        if not is_lead():
+            return  # data parallel: the state is the same on every rank
         extra = {
             "current_epoch": self.current_epoch,
             "_best_ema": self._best_ema,

@@ -769,3 +769,75 @@ def test_device_augment_on_the_card_equals_the_cpu(dummy_2d):
     for ref_d, ref_s in ((outs["cpu"][0].numpy(), outs["cpu"][1].numpy()), (want_d, want_s)):
         np.testing.assert_allclose(outs["cuda"][0].cpu().numpy(), ref_d, atol=1e-4, rtol=1e-5)
         assert (outs["cuda"][1].cpu().numpy() == ref_s).mean() >= 0.9999
+
+
+# --- data parallel at one rank, --all-devices ------------------------------------------
+
+
+def _batch_norm_on(dev, x, g):
+    """A BatchNorm3d in training through the port's ``batch_norm``: output,
+    gradients and running statistics."""
+    from nextou_tpu_torch.nn.layers import batch_norm
+
+    bn = torch.nn.BatchNorm3d(x.shape[1], device=dev).train()
+    x = x.clone().requires_grad_()
+    y = batch_norm(bn, x)
+    (y.float() * g).sum().backward()
+    return [y, x.grad, bn.weight.grad, bn.bias.grad, bn.running_mean, bn.running_var]
+
+
+@pytest.mark.gpu
+def test_one_rank_batch_norm_is_the_fused_path_on_gpu(tmp_path, monkeypatch):
+    """In a process group of one NCCL rank on the card, training-mode
+    ``batch_norm`` (bf16 input) is the fused path of no group, bit for bit,
+    and makes no all-reduce."""
+    if not torch.cuda.is_available():
+        pytest.skip("NCCL and the fused BatchNorm on the card: needs a CUDA card")
+    import torch.distributed as dist
+
+    from nextou_tpu_torch import parallel
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(5)
+    x = (2 * torch.randn(2, 6, 8, 10, 12, generator=gen) + 1).to(dev, torch.bfloat16)
+    g = torch.randn(2, 6, 8, 10, 12, generator=gen).to(dev)
+    want = _batch_norm_on(dev, x, g)
+    for name, value in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1").items():
+        monkeypatch.setenv(name, value)
+    assert parallel.initialize_distributed("cuda", f"file://{tmp_path}/store") == dev
+    try:
+        assert dist.get_backend() == "nccl" and parallel.world_size() == 1
+        calls = parallel.all_reduce.calls
+        got = _batch_norm_on(dev, x, g)
+        assert parallel.all_reduce.calls == calls
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_all_devices_equals_the_plain_predictor_on_gpu():
+    """``build_predictor`` over ``local_devices`` (``predict --all-devices``)
+    against the plain predictor, a small network in bf16 with 8-way TTA:
+    bit for bit with one card; with more, each forward's tiles split over
+    them, within phase 6's atol 2e-3 / rtol 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("the predictor's forwards run K1, CUDA code: needs a CUDA card")
+    from nextou_tpu_torch import predict
+    from nextou_tpu_torch.models import NexToU
+    from nextou_tpu_torch.models.presets import small_3d_spec
+    from nextou_tpu_torch.parallel import local_devices
+    from nextou_tpu_torch.utils import init_weights
+
+    dev = torch.device("cuda", 0)
+    spec = small_3d_spec(deep_supervision=False)
+    model = init_weights(NexToU(spec, dtype=torch.bfloat16, device=dev), seed=6).eval()
+    data = np.random.default_rng(6).standard_normal((16, 120, 100, 1)).astype(np.float32)
+    devices = local_devices(dev)
+    want = predict.build_predictor(model, (0, 1, 2), tile_batch=2)(data)
+    got = predict.build_predictor(model, (0, 1, 2), tile_batch=2, devices=devices)(data)
+    if len(devices) == 1:
+        assert np.array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3)

@@ -186,7 +186,8 @@ def test_port_imports_neither_jax_nor_flax():
         "       'infer.evaluate', 'train.checkpoint', 'train.trainer', 'train.trainers', 'run_training',\n"
         "       'data.io', 'data.preprocessing', 'data.resampling', 'paths', 'infer.raw',\n"
         "       'evaluate_folder', 'postprocess', 'ensemble', 'compat.flax_ckpt', 'predict_next_stage',\n"
-        "       'models.plain_unet', 'models.residual_unet', 'models.plans_network']\n"
+        "       'models.plain_unet', 'models.residual_unet', 'models.plans_network',\n"
+        "       'parallel', 'parallel.distributed', 'parallel.mesh']\n"
         "assert all('nextou_tpu_torch.' + n in names for n in new), names\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'msgpack',\n"
         "                                                          'nextou_tpu')))"

@@ -93,7 +93,10 @@ def test_every_registered_name_matches_the_jax_trainers_hooks(plans, config, dat
 
 
 def test_what_is_not_ported_raises(dataset, tmp_path, monkeypatch):
-    """Data-parallel training over several processes (M10) raises. What is
+    """Nothing of the trainer raises any longer. Data parallel (M10): at a
+    world size of 2 the trainer initializes with half the batch per rank and
+    broadcasts every parameter and buffer from rank 0
+    (``tests/test_torch_parallel.py`` trains on two ranks). What else is
     ported runs: ``nnUNetTrainer`` (the plans' PlainConvUNet) builds;
     on-device augmentation (M9) initializes on the CPU with
     ``device_da=True``, ``"auto"`` resolves to off on the CPU, and a cascade
@@ -118,10 +121,16 @@ def test_what_is_not_ported_raises(dataset, tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="predict_next_stage"):
         stage.get_split()
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="M10"):
-        get_trainer_class("nnUNetTrainer_NexToU")(TINY_PLANS, CONFIG, 0, DATASET_JSON,
-                                                   **kw).initialize()
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 0)
+    sent = []
+    monkeypatch.setattr(torch.distributed, "broadcast", lambda t, src: sent.append((t, src)))
+    parallel = get_trainer_class("nnUNetTrainer_NexToU")(TINY_PLANS, CONFIG, 0, DATASET_JSON,
+                                                          **kw).initialize()
+    assert (parallel.batch_size, parallel.local_batch_size) == (2, 1)
+    tensors = [*parallel.network.parameters(), *parallel.network.buffers()]
+    assert [t.data_ptr() for t, _ in sent] == [t.data_ptr() for t in tensors]
+    assert {src for _, src in sent} == {0}
 
 
 @pytest.fixture
