@@ -205,7 +205,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     step with their milliseconds (gloo takes CUDA tensors through host
     memory: a record, not a target); (c) after phase 5, ``predict.main
     --all-devices`` on its first case, its seg bit-equal to the same call's
-    without the flag (one card).
+    without the flag (one card);
+22. from a raw dataset to a served model with the port alone (after phase
+    19, in a folder of its own): (a) five seeded labelled CT cases and one
+    test case, int16 HU (background -1000, so cropping keeps the whole
+    volume), (96, 320, 288) at (0.6, 0.297, 0.297) mm, every one of the 14
+    labels present, written as ``.nii.gz`` in nnU-Net's raw layout by
+    ``data/io.py``; (b) ``plan_and_preprocess.main`` with
+    ``--verify_dataset_integrity -c 3d_fullres``: "dataset integrity OK",
+    3d_fullres 64x192x160 at batch 2, 3d_fullres_nextou 64x224x192 with
+    33/324, the trainer's spec of it equal to ``flagship_3d_spec()`` field
+    for field, five preprocessed cases; (c) ``run_training.main`` of the
+    planned 3d_fullres_nextou (1 epoch x 4 iterations, 50 eval steps, the
+    validation): K3 and K4 exactly 14 launches per step, K1 14 per eval
+    step and validation forward, losses finite, ``checkpoint_final.pth`` and
+    ``validation/summary.json`` written, seconds per iteration beside phase
+    14's; (d) ``find_best_configuration.main`` names the run with its
+    ``summary.json``'s foreground mean Dice; (e) ``predict.main --raw`` of
+    the test case from the run: the NIfTI at the input's shape, labels in
+    range, K1 14 launches per forward; (f) the run's weights rewritten in
+    upstream's layout (``module._orig_mod.`` prefixes, ``current_epoch``),
+    ``import_torch_checkpoint.main`` on the card, and ``predict.main --raw``
+    from the folder it writes: the seg bit-equal to (e)'s. Every stage's
+    seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record, each entry with the path its numbers were taken
@@ -215,6 +237,7 @@ distances of its neighbours and the plain version's. Without a CUDA card the scr
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2023,7 +2046,6 @@ class HostPeak:
 
 def run_main(fn, argv) -> str:
     """``fn(argv)`` with its standard output captured, echoed and returned."""
-    import contextlib
     import io as _io
 
     buf = _io.StringIO()
@@ -2740,6 +2762,247 @@ def cascade_phase(dev, tmp: str) -> dict:
             "s_per_iter": e["train_time_s"] / CASCADE_ITERS, "peak_bytes": peak}
 
 
+# --- from a raw dataset to a served model (phase 22) -----------------------------------
+
+# five labelled CT cases and one test case, stored as (96, 320, 288) at (0.6, 0.297,
+# 0.297) mm: the planner's flagship geometry (upstream's BTCV plan) from a fingerprint
+# small enough for this script
+DS_CASES, DS_SHAPE, DS_SPACING, DS_ITERS = 5, (96, 320, 288), (0.6, 0.297, 0.297), 4
+DS_CONFIG = "3d_fullres_nextou"
+
+
+def write_raw_ct(folder: str, seed: int) -> list:
+    """nnU-Net's raw layout: ``imagesTr``/``labelsTr`` of ``DS_CASES`` cases
+    and one case in ``imagesTs``, int16 HU with background -1000 (so cropping
+    keeps the whole volume), every label present, written in parallel by
+    the port's ``write_nifti`` (gzip level 9, as the reference's)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nextou_tpu_torch.data.io import write_nifti
+
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for i in range(DS_CASES + 1):
+        _, seg = labelled_case(rng, DS_SHAPE, 14)
+        hu = np.where(seg == 0, -1000, seg.astype(np.int32) * 40 + 20)
+        hu = np.round(hu + rng.normal(0, 20, DS_SHAPE)).astype(np.int16)
+        cid = f"case_{i:03d}"
+        images = "imagesTr" if i < DS_CASES else "imagesTs"
+        jobs.append((os.path.join(folder, images, f"{cid}_0000.nii.gz"), hu))
+        if i < DS_CASES:
+            jobs.append((os.path.join(folder, "labelsTr", f"{cid}.nii.gz"), seg))
+    for sub in ("imagesTr", "labelsTr", "imagesTs"):
+        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        for f in [ex.submit(write_nifti, path, arr, spacing=DS_SPACING) for path, arr in jobs]:
+            f.result()
+    with open(os.path.join(folder, "dataset.json"), "w") as f:
+        json.dump({"name": "Dataset022_RawCT", "channel_names": {"0": "CT"},
+                   "labels": {"background": 0, **{f"organ{i}": i for i in range(1, 14)}},
+                   "numTraining": DS_CASES, "file_ending": ".nii.gz"}, f)
+    return jobs
+
+
+def check_flagship_plan(plans: dict, spec) -> None:
+    """The planned 3d_fullres and its NexToU overlay are the BTCV plan's, and
+    the trainer's network spec of the overlay is the flagship's."""
+    from nextou_tpu_torch.models.presets import flagship_3d_spec
+
+    cfgs = plans["configurations"]
+    fr, ov = cfgs["3d_fullres"], cfgs[DS_CONFIG]
+    print(f"plans: 3d_fullres patch {fr['patch_size']} batch {fr['batch_size']}, "
+          f"{DS_CONFIG} patch {ov.get('patch_size')} features "
+          f"{ov.get('UNet_base_num_features')}/{ov.get('unet_max_num_features')}; "
+          f"configurations {list(cfgs)}")
+    if (fr["patch_size"], fr["batch_size"]) != ([64, 192, 160], 2) or (
+            ov.get("patch_size"), ov.get("UNet_base_num_features"),
+            ov.get("unet_max_num_features")) != ([64, 224, 192], 33, 324):
+        raise AssertionError("the planner did not plan the flagship")
+    got, want = dataclasses.asdict(spec), dataclasses.asdict(flagship_3d_spec())
+    differ = sorted(k for k in want if got.get(k) != want[k])
+    print(f"the trainer's spec of the planned {DS_CONFIG} against "
+          f"presets.flagship_3d_spec(): {'equal' if not differ else 'fields ' + str(differ)}")
+    if differ:
+        raise AssertionError(f"planned spec differs from the flagship in {differ}")
+
+
+@contextlib.contextmanager
+def timing(module, names, seconds: dict, prefix: str = ""):
+    """While the block runs, each of ``module``'s functions ``names`` adds its
+    seconds to ``seconds[prefix + name]``; the originals come back after."""
+    originals = {name: getattr(module, name) for name in names}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t = time.time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[key] = seconds.get(key, 0.0) + time.time() - t
+        return run
+
+    for name, fn in originals.items():
+        setattr(module, name, timed(prefix + name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+
+
+def expect_launches(what: str, got: tuple, want: tuple) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def pipeline_phase(dev, tmp: str, trained: dict) -> dict:
+    """Phase 22: a raw NIfTI dataset to a served model with the port alone:
+    integrity, fingerprint, plans and preprocessing, training the planned
+    flagship, find_best_configuration, raw serving, and an upstream-layout
+    checkpoint imported and served bit-equal."""
+    from nextou_tpu_torch import (
+        find_best_configuration,
+        import_torch_checkpoint,
+        plan_and_preprocess,
+        predict,
+        run_training,
+    )
+    from nextou_tpu_torch.data.io import read_image
+    from nextou_tpu_torch.infer import raw as raw_mod
+    from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda
+    from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda
+    from nextou_tpu_torch.plans import load_dataset_json
+    from nextou_tpu_torch.train import get_trainer_class
+
+    t_phase = time.time()
+    seconds = {}
+    raw, pre = os.path.join(tmp, "Dataset022_RawCT"), os.path.join(tmp, "preprocessed")
+    t0 = time.time()
+    write_raw_ct(raw, seed=22)
+    seconds["write raw"] = time.time() - t0
+    print(f"(a) {DS_CASES} labelled CT cases and 1 test case {DS_SHAPE} at {DS_SPACING} mm, "
+          f"14 labels, written as .nii.gz in {seconds['write raw']:.2f} s")
+
+    # (b) the CLI, its stages timed around the module's own functions
+    with timing(plan_and_preprocess, ("verify_dataset_integrity", "extract_fingerprint",
+                                      "plan_experiment", "preprocess_dataset"), seconds):
+        t0 = time.time()
+        out = run_main(plan_and_preprocess.main, [raw, "-o", pre, "--verify_dataset_integrity",
+                                                  "-c", "3d_fullres"])
+        seconds["plan_and_preprocess"] = time.time() - t0
+    if "dataset integrity OK" not in out:
+        raise AssertionError("the integrity check did not pass")
+    plans = load_json(os.path.join(pre, "nnUNetPlans.json"))
+    dataset_json = load_dataset_json(pre)
+    spec = get_trainer_class("nnUNetTrainer_NexToU")(
+        plans, DS_CONFIG, 0, dataset_json, device=dev).build_network_spec()
+    check_flagship_plan(plans, spec)
+    ident = plans["configurations"]["3d_fullres"]["data_identifier"]
+    cases = sorted(f for f in os.listdir(os.path.join(pre, ident)) if f.endswith(".npz"))
+    if len(cases) != DS_CASES:
+        raise AssertionError(f"{len(cases)} preprocessed cases in {ident}")
+    print(f"(b) plan_and_preprocess.main: {seconds['plan_and_preprocess']:.2f} s: integrity "
+          f"{seconds['verify_dataset_integrity']:.2f}, fingerprint "
+          f"{seconds['extract_fingerprint']:.2f}, planning {seconds['plan_experiment']:.3f}, "
+          f"preprocessing {seconds['preprocess_dataset']:.2f} s ({len(cases)} cases in {ident}/)")
+
+    # (c) the planned flagship on the card
+    counters = (knn_max_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda)
+    for counter in counters:
+        counter.launches = 0
+    t0 = time.time()
+    trainer = run_training.main([pre, DS_CONFIG, "0", "-tr", "nnUNetTrainer_NexToU",
+                                 "--epochs", "1", "--iters", str(DS_ITERS),
+                                 "--device", str(dev)])
+    torch.cuda.synchronize()
+    seconds["run_training"] = time.time() - t0
+    k1, k3, k4, k5 = (c.launches for c in counters)
+    _, val = trainer.get_split()
+    tiles = math.prod(len(s) for s in compute_sliding_window_steps(DS_SHAPE, spec.patch_size))
+    fwd_case = math.ceil(tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
+    evals = trainer.num_val_iterations_per_epoch
+    e = trainer.log_history[-1]
+    per_iter = e["train_time_s"] / DS_ITERS
+    ref = trained["log"]
+    print(f"(c) run_training.main {DS_CONFIG}, 1 epoch x {DS_ITERS}, {evals} eval steps, "
+          f"validation of {len(val.case_ids)} case(s) ({len(val.case_ids) * fwd_case} forwards): "
+          f"{seconds['run_training']:.2f} s incl. model build; loss {e['train_loss']:.4f} val "
+          f"{e['val_loss']:.4f}; {per_iter:.3f} s per iteration (phase 14: "
+          f"{ref[0]['train_time_s'] / ITERS:.3f} in epoch 0, {trained['s_per_iter']:.3f} in "
+          f"epoch 1); K3 {k3}, K4 {k4}, K1 {k1}, K5 {k5} launches")
+    expect_launches("the trainer (K3, K4, K1, K5)", (k3, k4, k1, k5),
+                    (14 * DS_ITERS, 14 * DS_ITERS,
+                     14 * (evals + len(val.case_ids) * fwd_case), 0))
+    if not (math.isfinite(e["train_loss"]) and math.isfinite(e["val_loss"])):
+        raise AssertionError("phase 22's losses")
+    run = trainer.output_folder
+    for name in ("checkpoint_final.pth", "validation/summary.json"):
+        if not os.path.exists(os.path.join(run, name)):
+            raise AssertionError(f"the trainer wrote no {name}")
+    dice = load_json(os.path.join(run, "validation", "summary.json"))["foreground_mean"]["Dice"]
+
+    # (d) find_best_configuration names the run
+    t0 = time.time()
+    info_path = os.path.join(tmp, "inference_information.json")
+    run_main(find_best_configuration.main, [run, "-o", info_path])
+    seconds["find_best_configuration"] = time.time() - t0
+    info = load_json(info_path)
+    print(f"(d) find_best_configuration.main: best {info['best_configuration']!r}, fg mean Dice "
+          f"{info['best_fg_mean_dice']!r} (summary.json: {dice!r}); "
+          f"{seconds['find_best_configuration']:.2f} s")
+    if info["best_configuration"] != os.path.basename(run) or info["best_fg_mean_dice"] != dice:
+        raise AssertionError("find_best_configuration did not name the run")
+
+    # (e) the test case through predict --raw, and (f) the same from an imported
+    # upstream-layout checkpoint
+    test_dir = os.path.join(raw, "imagesTs")
+    ckpt = torch.load(os.path.join(run, "checkpoint_final.pth"), map_location="cpu",
+                      weights_only=True)
+    upstream = os.path.join(tmp, "upstream_checkpoint_final.pth")
+    torch.save({"network_weights": {f"module._orig_mod.{k}": v
+                                    for k, v in ckpt["network_weights"].items()},
+                "current_epoch": 1}, upstream)
+    t0 = time.time()
+    imported = os.path.join(tmp, "imported")
+    import_torch_checkpoint.main([upstream, pre, DS_CONFIG, "-o", imported,
+                                  "--device", str(dev)])
+    seconds["import_torch_checkpoint"] = time.time() - t0
+    segs, k1_serve = {}, 0
+    for step, model in (("e", run), ("f", imported)):
+        knn_max_cuda.launches = 0
+        out_dir = os.path.join(tmp, f"served_{step}")
+        t0 = time.time()
+        with timing(raw_mod, ("read_image", "resample_data_or_seg_to_shape", "write_nifti"),
+                    seconds, prefix=f"{step} "):
+            predict.main([model, test_dir, DS_CONFIG, "--raw", "-o", out_dir,
+                          "--tile-batch", str(TILE_BATCH), "--device", str(dev)])
+        torch.cuda.synchronize()
+        seconds[f"predict {step}"] = time.time() - t0
+        k1_serve += knn_max_cuda.launches
+        seg, sp = read_image(os.path.join(out_dir, f"case_{DS_CASES:03d}.nii.gz"))
+        segs[step] = seg
+        print(f"({step}) predict.main --raw from {os.path.basename(model)}: "
+              f"{seconds[f'predict {step}']:.2f} s per volume incl. model build (reading "
+              f"{seconds[f'{step} read_image']:.2f}, resampling "
+              f"{seconds[f'{step} resample_data_or_seg_to_shape']:.2f}, writing the NIfTI "
+              f"{seconds[f'{step} write_nifti']:.2f} s), K1 "
+              f"{knn_max_cuda.launches} launches ({fwd_case} forwards), NIfTI {seg.shape} "
+              f"{seg.dtype} at {tuple(round(s, 3) for s in sp)} mm, labels "
+              f"{np.unique(seg).tolist()}")
+        expect_launches(f"predict ({step}), K1", (knn_max_cuda.launches,), (14 * fwd_case,))
+        if seg.shape != DS_SHAPE or seg.min() < 0 or seg.max() >= 14:
+            raise AssertionError(f"the served seg ({step})")
+    same = bool(np.array_equal(segs["e"], segs["f"]))
+    print(f"(f) import_torch_checkpoint.main {seconds['import_torch_checkpoint']:.2f} s; the "
+          f"imported folder's seg bit-equal to the run's: {same}")
+    if not same:
+        raise AssertionError("the imported checkpoint serves another seg")
+    print(f"phase 22: {time.time() - t_phase:.1f} s")
+    return {"k1": k1 + k1_serve, "k3": k3, "k4": k4, "s_per_iter": per_iter,
+            "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -2811,12 +3074,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         cascade = cascade_phase(dev, tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        pipeline = pipeline_phase(dev, tmp, trained)
     records["conv3d"].merge(nets["conv3d"])
 
     # each kernel's numbers belong to the path that runs it ("path"): K1 to
-    # predict.main on the flagship (phases 5, 15, 16 b, 17) and on the cascade
-    # stage (19), K3 and K4 to the flagship's train steps and the cascade
-    # stage's, K2 to the small dilated network's (no flagship graph is
+    # predict.main on the flagship (phases 5, 15, 16 b, 17, 22) and on the cascade
+    # stage (19), K3 and K4 to the flagship's train steps, the cascade stage's
+    # and the planned flagship's (22), K2 to the small dilated network's (no flagship graph is
     # dilated), K5 to the networks with conv_kernel="1" (the flagship's served
     # volume and train steps; the 3d_lowres network's volumes and the residual
     # encoder's forwards and steps, phase 18: its times sum one forward of
@@ -2824,21 +3090,23 @@ def main() -> int:
     sources = {
         "knn_max": ("knn_max.cu", "nextou_tpu/kernels/knn.py:40",
                     sl["launches"] + raw["launches"] + host["launches"] + ens["launches"]
-                    + trained["k1"] + nets["k1"] + cascade["k1"] + all_devices_k1,
+                    + trained["k1"] + nets["k1"] + cascade["k1"] + all_devices_k1
+                    + pipeline["k1"],
                     "flagship predict: preprocessed, raw, over the budget, fold ensembles, "
                     "--all-devices and without; the trainer's eval steps and validation; the "
                     "plain Grapher; the cascade stage's eval steps, validation and predict -prev "
-                    "(preprocessed, raw)"),
+                    "(preprocessed, raw); the planned flagship's eval steps and validation, "
+                    "predict --raw from its run and from the imported checkpoint"),
         "knn_indices": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:184", k2_launches,
                         "small dilated network, train steps"),
         "knn_max_idx": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:278",
-                        tr["k3"] + trained["k3"] + cascade["k3"] + dp["k3"],
+                        tr["k3"] + trained["k3"] + cascade["k3"] + dp["k3"] + pipeline["k3"],
                         "flagship train steps; the trainer's; the cascade stage's; two gloo "
-                        "ranks' and their one process's"),
+                        "ranks' and their one process's; the planned flagship's"),
         "knn_max_bwd": ("knn_max_bwd.cu", "nextou_tpu/kernels/knn.py:384",
-                        tr["k4"] + trained["k4"] + cascade["k4"] + dp["k4"],
+                        tr["k4"] + trained["k4"] + cascade["k4"] + dp["k4"] + pipeline["k4"],
                         "flagship train steps; the trainer's; the cascade stage's; two gloo "
-                        "ranks' and their one process's"),
+                        "ranks' and their one process's; the planned flagship's"),
         "conv3d": ("conv3d.cu", "nextou_tpu/kernels/conv.py:90",
                    sl5["launches"] + tr5["launches"] + nets["k5"],
                    "flagship predict and train steps with conv_kernel='1'; the 3d_lowres "

@@ -11,11 +11,15 @@ every module here is tested against.
                host accumulation), raw-volume serving, evaluation
 - ``data``     NIfTI I/O, preprocessing and resampling; preprocessed cases,
                sampling, augmentation and the loader
-- ``compat``   weights from ``nextou_tpu`` variables
+- ``plans``    plans and dataset.json loading, the experiment planner, the
+               dataset fingerprint and the raw dataset's integrity check
+- ``compat``   weights from ``nextou_tpu`` variables and upstream checkpoints
 - ``parallel`` data parallel over processes (``torch.distributed``), replicas
                over a process's cards
 - ``predict``  the prediction CLI (preprocessed or raw cases, fold ensembles);
-  ``ensemble``, ``postprocess``, ``evaluate_folder`` and ``run_training``
+  ``plan_and_preprocess``, ``convert_msd``, ``run_training``,
+  ``find_best_configuration``, ``import_torch_checkpoint``, ``ensemble``,
+  ``postprocess`` and ``evaluate_folder``
 """
 
 __version__ = "0.1.0"

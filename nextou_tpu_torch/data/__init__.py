@@ -1,6 +1,6 @@
 """Raw images (NIfTI), their preprocessing and resampling; preprocessed
 cases on disk, patch sampling, host augmentation, its on-device
-counterpart and the prefetching loader."""
+counterpart, the prefetching loader and seeded synthetic datasets."""
 
 from nextou_tpu_torch.data.augment import AugmentConfig, augment_batch, initial_patch_size
 from nextou_tpu_torch.data.dataset import PreprocessedDataset, make_splits, save_case
@@ -28,3 +28,4 @@ from nextou_tpu_torch.data.resampling import (
     resize_segmentation,
 )
 from nextou_tpu_torch.data.sampler import PatchSampler, extract_patch
+from nextou_tpu_torch.data.synthetic import make_synthetic_case, make_synthetic_dataset

@@ -841,3 +841,45 @@ def test_all_devices_equals_the_plain_predictor_on_gpu():
         assert np.array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_imported_upstream_checkpoint_serves_the_same_seg_on_gpu(tmp_path):
+    """``chip_smoke.py`` phase 22 (f) at a small size: a run's weights
+    rewritten in upstream's layout (``module.`` and ``_orig_mod.`` prefixes,
+    ``current_epoch``), imported by ``import_torch_checkpoint`` on the card,
+    serve through ``predict.main`` the seg of the run's own checkpoint, bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("the import builds the network on the card and predict runs K1: needs a "
+                    "CUDA card")
+    import json
+
+    from nextou_tpu_torch import import_torch_checkpoint, predict
+    from nextou_tpu_torch.models.presets import small_3d_spec
+    from nextou_tpu_torch.tools.synthetic import write_dataset
+    from nextou_tpu_torch.train import get_trainer_class
+
+    config, folder, run = "3d_small", str(tmp_path / "data"), str(tmp_path / "run")
+    write_dataset(folder, small_3d_spec(), config, 1, (16, 128, 112), seed=22, labelled=True)
+    with open(f"{folder}/dataset.json") as f:
+        dataset_json = json.load(f)
+    trainer = get_trainer_class("nnUNetTrainer_NexToU")(
+        f"{folder}/nnUNetPlans.json", config, 0, dataset_json, preprocessed_folder=folder,
+        output_folder=run, device="cuda").initialize()
+    weights = {k: v.cpu() for k, v in trainer.network.state_dict().items()}
+    torch.save({"network_weights": weights}, f"{run}/checkpoint_final.pth")
+    upstream = str(tmp_path / "upstream.pth")
+    torch.save({"network_weights": {f"module._orig_mod.{k}": v for k, v in weights.items()},
+                "current_epoch": 1}, upstream)
+    imported = str(tmp_path / "imported")
+    import_torch_checkpoint.main([upstream, folder, config, "-o", imported])
+    segs = []
+    for model in (run, imported):
+        port_knn.knn_max_cuda.launches = 0
+        predict.main([model, folder, config, "-o", f"{model}_pred"])
+        assert port_knn.knn_max_cuda.launches > 0
+        with np.load(f"{model}_pred/case_000.npz") as z:
+            segs.append(z["seg"])
+    assert segs[0].shape == (16, 128, 112)
+    assert np.array_equal(*segs)
