@@ -228,6 +228,23 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     ``import_torch_checkpoint.main`` on the card, and ``predict.main --raw``
     from the folder it writes: the seg bit-equal to (e)'s. Every stage's
     seconds.
+23. the port's training over a run (after phase 22): (a)
+    the small dilated network of phase 8 in f32, 20 steps on the card (K2,
+    K3, K4; K5 at every (3, 3, 3) conv with ``conv_kernel="1"``, its region
+    widened to them) against the CPU, the card set to the CPU's state after
+    each step, on the port trainer's host-DA batches of a synthetic 3D
+    dataset, steps 0-9 with Dice + CE and 10-19 with the RAVIR BTI loss, once
+    with ``conv_kernel`` "0" and once "1": per step the loss within rtol 1e-4,
+    the gradient norm 2e-2, the update 10% in L2, the TI term alone 1e-3 (or,
+    on a step at a near tie of a kNN selection or a max, within 1.5 x the
+    CPU's own floor under a one-ulp change of its parameters, printed), the
+    worst of each, launches exact; (b) the flagship at full width through
+    ``run_training.main -tr nnUNetTrainer_NexToU_BTI_Synapse`` on phase 14's
+    cases, 3 epochs x 50 iterations, device DA, 10 eval steps per
+    epoch, the validation: every loss and BTI term finite, epoch 2's mean
+    train loss below epoch 0's, K3 and K4 14 launches per step, K1 14 per
+    eval step and validation forward; seconds per iteration, the loader's
+    share, peak device memory, the phase's seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record, each entry with the path its numbers were taken
@@ -3003,6 +3020,276 @@ def pipeline_phase(dev, tmp: str, trained: dict) -> dict:
             "seconds": seconds}
 
 
+# --- training over a run (phase 23) ----------------------------------------------------
+
+# (a) the small dilated network's run: a synthetic 3D dataset whose plans give
+# small_train_spec's (8, 16, 16) patch, the trainer's host-DA batches, 10 steps
+# with Dice + CE and 10 with the RAVIR BTI loss (exclusion [[1, 2]])
+RUN_PLANS = {
+    "dataset_name": "Dataset023_Run", "plans_name": "nnUNetPlans",
+    "configurations": {"3d_tiny": {
+        "batch_size": 2, "patch_size": [8, 16, 16], "spacing": [1.0, 1.0, 1.0],
+        "normalization_schemes": ["ZScoreNormalization"], "use_mask_for_norm": [False],
+        "UNet_class_name": "PlainConvUNet", "UNet_base_num_features": 4,
+        "unet_max_num_features": 6, "n_conv_per_stage_encoder": [2] * 5,
+        "n_conv_per_stage_decoder": [2] * 4,
+        "pool_op_kernel_sizes": [[1, 1, 1], [2, 2, 2], [2, 2, 2], [1, 1, 1], [1, 1, 1]],
+        "conv_kernel_sizes": [[3, 3, 3]] * 5, "batch_dice": True,
+    }},
+}
+RUN_DATASET_JSON = {"labels": {"background": 0, "a": 1, "b": 2}, "numTraining": 6,
+                    "channel_names": {"0": "img"}}
+RUN_STEPS, RUN_BTI_FROM = 20, 10
+# per step, card against CPU: loss, gradient norm (relative), update (L2
+# share of the CPU's), TI term (relative); small_train_phase's and the TI term's
+RUN_WIDTHS = {"loss": 1e-4, "grad_norm": 2e-2, "update": 0.1, "ti": 1e-3}
+# a step beyond a width passes only where the card's result lies within the
+# widths of the CPU's step from the same state with the parameters scaled by
+# one of these (a near tie that a one-ulp change flips the card's way), at no
+# more than RUN_WITNESS_STEPS of the 40 steps (predicted: 0-4)
+RUN_WITNESS_EPS = (1e-7, -1e-7, 1e-6, -1e-6)
+RUN_WITNESS_STEPS = 4
+# (3, 3, 3) convs of small_train_spec: 11 per step routed to K5 with
+# conv_kernel="1" and the region widened to each of them
+RUN_K5_PER_STEP = 11
+# (b) the flagship through run_training.main with the BTI Synapse trainer on
+# phase 14's cases (a validation case of 64 x 280 x 240: its HD95 costs half of
+# a 96 x 320 x 288 case's)
+RUN_TRAINER = "nnUNetTrainer_NexToU_BTI_Synapse"
+RUN_EPOCHS, RUN_ITERS, RUN_EVAL_STEPS = 3, 50, 10
+
+
+def run_batches(tmp: str):
+    """The port trainer's host-DA batches (one loader thread) of a synthetic
+    3D dataset, and the loss specs of the plain and the RAVIR BTI trainer."""
+    from nextou_tpu_torch.data import make_synthetic_dataset
+    from nextou_tpu_torch.train import get_trainer_class
+
+    folder = os.path.join(tmp, "run_data")
+    make_synthetic_dataset(folder, n_cases=6, shape=(16, 32, 32), num_classes=3)
+    trainers = [get_trainer_class(name)(
+        RUN_PLANS, "3d_tiny", 0, RUN_DATASET_JSON, preprocessed_folder=folder,
+        output_folder=os.path.join(tmp, "run_out"), device="cpu", device_da=False,
+        loader_threads=1) for name in ("nnUNetTrainer_NexToU", "nnUNetTrainer_NexToU_BTI_RAVIR")]
+    loader, _ = trainers[0].get_dataloaders()
+    with loader:
+        it = iter(loader)
+        batches = [next(it) for _ in range(RUN_STEPS)]
+    return batches, [t._loss_spec() for t in trainers]
+
+
+def run_small_phase(dev, tmp: str) -> dict:
+    """Phase 23 (a): 20 train steps of the small dilated network in f32 on the
+    card (K2, K3, K4; and K5 at every (3, 3, 3) conv with conv_kernel="1")
+    against the same steps on the CPU (plain versions), on the trainer's
+    host-DA batches, 10 with Dice + CE and 10 with the BTI loss, once per
+    conv_kernel. The card is set to the CPU's state after each step
+    (small_train_phase's protocol). Per step: the loss, the gradient norm,
+    the update and, in the BTI steps, the TI term alone (each model's logits
+    through the deep-supervised TI loss, without its lambda of 1e-6) within
+    ``RUN_WIDTHS`` of the CPU's. Where a step lands on a near tie (a kNN
+    selection, or a max whose gradient is discontinuous there), the CPU
+    runs it again from its state with the parameters scaled by each of
+    ``RUN_WITNESS_EPS``: the card's result must then lie within the same
+    widths of one of those, at no more than ``RUN_WITNESS_STEPS`` of the 40
+    steps. Launches exact: K2 2, K3 and K4 12 per step, K5
+    ``RUN_K5_PER_STEP`` with "1" and none with "0"."""
+    from unittest import mock
+
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda, every_333_conv
+    from nextou_tpu_torch.kernels.knn import knn_indices_cuda, knn_max_bwd_cuda, knn_max_idx_cuda
+    from nextou_tpu_torch.losses import deep_supervised_loss, deep_supervision_weights, ti_loss
+    from nextou_tpu_torch.models import NexToU
+    from nextou_tpu_torch.nn import conv_blocks
+    from nextou_tpu_torch.train import create_train_state, make_optimizer, make_train_step, poly_lr
+
+    t_phase = time.time()
+    spec = small_train_spec()
+    batches, (dc_ce, bti) = run_batches(tmp)
+    weights = deep_supervision_weights(len(spec.decoder))
+    # the poly rate per "epoch" of 10 steps over two epochs: 1e-2, then 5.4e-3
+    opt = make_optimizer(poly_lr(1e-2, 2, 0.9, steps_per_epoch=RUN_BTI_FROM))
+    cpu = torch.device("cpu")
+    counters = (knn_indices_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda)
+
+    def flat(model):
+        return torch.cat([p.detach().cpu().flatten() for p in model.parameters()])
+
+    def distances(a, b):
+        return {"loss": abs(a[0] - b[0]) / abs(b[0]),
+                "grad_norm": abs(a[1] - b[1]) / abs(b[1]),
+                "update": ((a[2] - b[2]).norm() / b[2].norm()).item(),
+                "ti": 0.0 if b[3] is None else abs(a[3] - b[3]) / abs(b[3])}
+
+    out = {"k2": 0, "k3": 0, "k4": 0, "k5": 0, "worst": {}}
+    witnessed = 0
+    for mode in ("0", "1"):
+        region = (mock.patch.object(conv_blocks, "conv_kernel_wins", every_333_conv)
+                  if mode == "1" else contextlib.nullcontext())
+        with region:
+            states, steps, logits = {}, {}, {}
+            for kind, d in (("cuda", dev), ("cpu", cpu), ("witness", cpu)):
+                model = NexToU(spec, conv_kernel=mode, device=d)
+                states[kind] = create_train_state(model, opt, seed=23)
+                model.register_forward_hook(
+                    lambda m, a, o, kind=kind: logits.__setitem__(kind, [t.detach() for t in o]))
+                steps[kind] = [make_train_step(model, opt, s, weights) for s in (dc_ce, bti)]
+            for counter in counters:
+                counter.launches = 0
+            worst = dict.fromkeys(RUN_WIDTHS, 0.0)
+
+            def run_step(kind, leg, batch, start):
+                states[kind], m = steps[kind][leg](states[kind], batch)
+                ti = None
+                if leg:
+                    seg = torch.as_tensor(batch["seg"]).long().to(logits[kind][0].device)
+                    ti = deep_supervised_loss(
+                        logits[kind], seg, lambda o, t: ti_loss(o, t, bti.ti), weights).item()
+                return m["loss"].item(), m["grad_norm"].item(), flat(states[kind].model) - start, ti
+
+            for i, batch in enumerate(batches):
+                leg = int(i >= RUN_BTI_FROM)
+                before = {k: {n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                          else v.clone() if torch.is_tensor(v) else v
+                          for k, v in states["cpu"].state_dict().items()}
+                start = flat(states["cpu"].model)
+                assert torch.equal(start, flat(states["cuda"].model))
+                got = {kind: run_step(kind, leg, batch, start) for kind in ("cuda", "cpu")}
+                off = distances(got["cuda"], got["cpu"])
+                note = ""
+                if any(off[k] > w for k, w in RUN_WIDTHS.items()):
+                    witnessed += 1
+                    seen = []
+                    for eps in RUN_WITNESS_EPS:
+                        states["witness"].load_state_dict(before)
+                        with torch.no_grad():
+                            for p in states["witness"].model.parameters():
+                                p.mul_(1 + eps)
+                        result = run_step("witness", leg, batch, start * (1 + eps))
+                        seen.append((eps, distances(got["cuda"], result),
+                                     distances(result, got["cpu"])))
+                    eps, match, moved = min(seen, key=lambda e: max(
+                        e[1][k] / w for k, w in RUN_WIDTHS.items()))
+                    note = (f" (beyond a width: the CPU at 1 {eps:+.0e} moves by " + ", ".join(
+                        f"{k} {moved[k]:.2e}" for k in RUN_WIDTHS) + "; the card from it "
+                        + ", ".join(f"{k} {match[k]:.2e}" for k in RUN_WIDTHS) + ")")
+                    if any(match[k] > w for k, w in RUN_WIDTHS.items()):
+                        raise AssertionError(
+                            f"phase 23 (a) conv_kernel={mode!r} step {i}: off by {off}, and "
+                            f"beyond the widths of each one-ulp CPU step: {seen}")
+                    if witnessed > RUN_WITNESS_STEPS:
+                        raise AssertionError(
+                            f"phase 23 (a): {witnessed} steps beyond a width (at most "
+                            f"{RUN_WITNESS_STEPS} of {2 * RUN_STEPS})")
+                (gl, gn, _, gt), (wl, wn, _, wt) = got["cuda"], got["cpu"]
+                print(f"(a) conv_kernel={mode!r} step {i} ({'BTI' if leg else 'Dice + CE'}): loss "
+                      f"{gl:.6f} vs {wl:.6f}, grad_norm {gn:.4f} vs {wn:.4f}, update off "
+                      f"{off['update']:.2e}" + (f", TI term {gt:.4f} vs {wt:.4f}" if leg else "")
+                      + note)
+                worst = {k: max(worst[k], off[k]) for k in worst}
+                states["cuda"].load_state_dict(states["cpu"].state_dict())
+            k2, k3, k4, k5 = (c.launches for c in counters)
+            print(f"(a) conv_kernel={mode!r}: worst over {RUN_STEPS} steps, card vs CPU: "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                  + f"; launches K2 {k2} K3 {k3} K4 {k4} K5 {k5}")
+            # 14 graphers, the 2 of the dilated stage through K2, the other 12 K3 + K4
+            expect_launches(f"phase 23 (a) conv_kernel={mode!r} (K2, K3, K4, K5)", (k2, k3, k4, k5),
+                            (2 * RUN_STEPS, 12 * RUN_STEPS, 12 * RUN_STEPS,
+                             RUN_K5_PER_STEP * RUN_STEPS * (mode == "1")))
+            out["worst"][mode] = worst
+            for key, n in zip(("k2", "k3", "k4", "k5"), (k2, k3, k4, k5)):
+                out[key] += n
+    out["witnessed"] = witnessed
+    print(f"(a) {witnessed} of {2 * RUN_STEPS} steps beyond a width, each within the widths of a "
+          f"one-ulp CPU step (at most {RUN_WITNESS_STEPS})")
+    print(f"phase 23 (a): {time.time() - t_phase:.1f} s")
+    return out
+
+
+def run_flagship_phase(dev, data_dir: str) -> dict:
+    """Phase 23 (b): the flagship at full width, free running, through
+    ``run_training.main`` with the BTI Synapse trainer (14 classes, the
+    13-organ tree) on phase 14's cases: 3 epochs x 50 iterations,
+    device DA (auto), 10 eval steps per epoch, then the final validation.
+    Every BTI term of the run finite (each call of the compound loss's TI
+    term recorded), every epoch's losses finite, the epoch-mean train loss
+    of epoch 2 below epoch 0's, K3 and K4 exactly 14 launches per step, K1
+    14 per eval step and validation forward."""
+    from unittest import mock
+
+    from nextou_tpu_torch import run_training
+    from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda
+    from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda
+    from nextou_tpu_torch.losses import compound
+    from nextou_tpu_torch.train import get_trainer_class
+    from nextou_tpu_torch.train.trainer import NexToUTrainer
+
+    t_phase = time.time()
+    config, seconds = "3d_fullres_nextou", {}  # phase 14's configuration
+    terms, ti = [], compound.ti_loss
+
+    def recorded_ti(*args, **kwargs):
+        term = ti(*args, **kwargs)
+        terms.append(term.detach())
+        return term
+
+    counters = (knn_max_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda)
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    compound.ti_loss = recorded_ti
+    try:
+        with mock.patch.object(get_trainer_class(RUN_TRAINER), "num_val_iterations_per_epoch",
+                               RUN_EVAL_STEPS), timing(NexToUTrainer, (
+                "initialize", "run_training", "save_checkpoint", "perform_actual_validation"),
+                seconds):
+            trainer = run_training.main([data_dir, config, "0", "-tr", RUN_TRAINER,
+                                         "--epochs", str(RUN_EPOCHS), "--iters", str(RUN_ITERS),
+                                         "--device", str(dev)])
+    finally:
+        compound.ti_loss = ti
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    k1, k3, k4, k5 = (c.launches for c in counters)
+    terms = torch.stack(terms).cpu()
+    log = trainer.log_history
+    for e in log:
+        print(f"(b) epoch {e['epoch']}: train_loss {e['train_loss']:.4f} (first step "
+              f"{e['first_step_loss']:.4f}) val_loss {e['val_loss']:.4f} ema "
+              f"{e['ema_pseudo_dice']:.4f}; {e['train_time_s'] / RUN_ITERS:.3f} s per iteration, "
+              f"waiting for the loader {e['loader_wait_s'] / e['train_time_s']:.3f} of it")
+    _, val = trainer.get_split()
+    tiles = math.prod(len(s) for s in compute_sliding_window_steps(
+        TRAIN_SHAPE, trainer.configuration_manager.patch_size))
+    fwd_case = math.ceil(tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
+    steps = RUN_EPOCHS * RUN_ITERS
+    print(f"(b) run_training.main -tr {RUN_TRAINER} {config}, {RUN_EPOCHS} x {RUN_ITERS}, "
+          f"device DA {trainer.device_da}, {RUN_EVAL_STEPS} eval steps per epoch, validation of "
+          f"{len(val.case_ids)} case(s): {time.time() - t_phase:.1f} s incl. model build; BTI "
+          f"term over {len(terms)} calls {terms.min().item():.4f} .. {terms.max().item():.4f} "
+          f"(all finite: {bool(torch.isfinite(terms).all())}); peak device memory "
+          f"{peak / 2**30:.2f} GiB; K3 {k3}, K4 {k4}, K1 {k1}, K5 {k5} launches; seconds in "
+          f"the trainer's run_training {seconds['run_training']:.2f} (initialize "
+          f"{seconds['initialize']:.2f}, epochs {sum(e['epoch_time_s'] for e in log):.2f}, "
+          f"checkpoints {seconds['save_checkpoint']:.2f}), the final validation "
+          f"{seconds['perform_actual_validation']:.2f}")
+    expect_launches("phase 23 (b) (K3, K4, K1, K5)", (k3, k4, k1, k5),
+                    (14 * steps, 14 * steps,
+                     14 * (RUN_EPOCHS * RUN_EVAL_STEPS + len(val.case_ids) * fwd_case), 0))
+    losses = [v for e in log for v in (e["train_loss"], e["val_loss"], e["first_step_loss"])]
+    if len(log) != RUN_EPOCHS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"phase 23 (b): losses {losses}")
+    if not (len(terms) and torch.isfinite(terms).all()):
+        raise AssertionError("phase 23 (b): a BTI term is not finite")
+    if not log[-1]["train_loss"] < log[0]["train_loss"]:
+        raise AssertionError(f"phase 23 (b): epoch {RUN_EPOCHS - 1}'s train loss "
+                             f"{log[-1]['train_loss']} not below epoch 0's {log[0]['train_loss']}")
+    print(f"phase 23 (b): {time.time() - t_phase:.1f} s")
+    return {"k1": k1, "k3": k3, "k4": k4, "peak_bytes": peak,
+            "s_per_iter": [e["train_time_s"] / RUN_ITERS for e in log]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -3054,16 +3341,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     k2_launches = small_train_phase(dev)
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        trained = trainer_phase(dev, tmp)
-        torch.cuda.empty_cache()
-        device_augment_phase(dev, tmp)
-        torch.cuda.empty_cache()
-        t_phase = time.time()
-        one_rank_phase(tmp, trained)
-        torch.cuda.empty_cache()
-        dp = two_ranks_phase(dev, tmp)
-        print(f"phase 21 (a, b): {time.time() - t_phase:.1f} s")
+    # phase 14's cases stay on disk until phase 23 (b) has trained on them
+    trainer_tmp = tempfile.TemporaryDirectory()
+    tmp = trainer_tmp.name
+    trained = trainer_phase(dev, tmp)
+    torch.cuda.empty_cache()
+    device_augment_phase(dev, tmp)
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    one_rank_phase(tmp, trained)
+    torch.cuda.empty_cache()
+    dp = two_ranks_phase(dev, tmp)
+    print(f"phase 21 (a, b): {time.time() - t_phase:.1f} s")
     torch.cuda.empty_cache()
     tools = tools_phase(dev)
     records["conv_probe"], records["knn_dissect"] = tools["conv_probe"], tools["knn_dissect"]
@@ -3077,6 +3366,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         pipeline = pipeline_phase(dev, tmp, trained)
+        torch.cuda.empty_cache()
+        t_phase = time.time()
+        run_small = run_small_phase(dev, tmp)
+        torch.cuda.empty_cache()
+        run_flagship = run_flagship_phase(dev, os.path.join(trainer_tmp.name, "train_data"))
+        print(f"phase 23: {time.time() - t_phase:.1f} s")
+    trainer_tmp.cleanup()
     records["conv3d"].merge(nets["conv3d"])
 
     # each kernel's numbers belong to the path that runs it ("path"): K1 to
@@ -3091,26 +3387,34 @@ def main() -> int:
         "knn_max": ("knn_max.cu", "nextou_tpu/kernels/knn.py:40",
                     sl["launches"] + raw["launches"] + host["launches"] + ens["launches"]
                     + trained["k1"] + nets["k1"] + cascade["k1"] + all_devices_k1
-                    + pipeline["k1"],
+                    + pipeline["k1"] + run_flagship["k1"],
                     "flagship predict: preprocessed, raw, over the budget, fold ensembles, "
                     "--all-devices and without; the trainer's eval steps and validation; the "
                     "plain Grapher; the cascade stage's eval steps, validation and predict -prev "
                     "(preprocessed, raw); the planned flagship's eval steps and validation, "
-                    "predict --raw from its run and from the imported checkpoint"),
-        "knn_indices": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:184", k2_launches,
-                        "small dilated network, train steps"),
+                    "predict --raw from its run and from the imported checkpoint; the "
+                    "flagship BTI run's eval steps and validation"),
+        "knn_indices": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:184",
+                        k2_launches + run_small["k2"],
+                        "small dilated network, train steps; its 40 steps of a run (Dice + CE "
+                        "and BTI, conv_kernel '0' and '1') against the CPU"),
         "knn_max_idx": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:278",
-                        tr["k3"] + trained["k3"] + cascade["k3"] + dp["k3"] + pipeline["k3"],
+                        tr["k3"] + trained["k3"] + cascade["k3"] + dp["k3"] + pipeline["k3"]
+                        + run_small["k3"] + run_flagship["k3"],
                         "flagship train steps; the trainer's; the cascade stage's; two gloo "
-                        "ranks' and their one process's; the planned flagship's"),
+                        "ranks' and their one process's; the planned flagship's; the small "
+                        "network's run against the CPU; the flagship BTI run's 150 steps"),
         "knn_max_bwd": ("knn_max_bwd.cu", "nextou_tpu/kernels/knn.py:384",
-                        tr["k4"] + trained["k4"] + cascade["k4"] + dp["k4"] + pipeline["k4"],
+                        tr["k4"] + trained["k4"] + cascade["k4"] + dp["k4"] + pipeline["k4"]
+                        + run_small["k4"] + run_flagship["k4"],
                         "flagship train steps; the trainer's; the cascade stage's; two gloo "
-                        "ranks' and their one process's; the planned flagship's"),
+                        "ranks' and their one process's; the planned flagship's; the small "
+                        "network's run against the CPU; the flagship BTI run's 150 steps"),
         "conv3d": ("conv3d.cu", "nextou_tpu/kernels/conv.py:90",
-                   sl5["launches"] + tr5["launches"] + nets["k5"],
+                   sl5["launches"] + tr5["launches"] + nets["k5"] + run_small["k5"],
                    "flagship predict and train steps with conv_kernel='1'; the 3d_lowres "
-                   "PlainConvUNet's predict and the ResidualEncoderUNet's forwards and steps"),
+                   "PlainConvUNet's predict and the ResidualEncoderUNet's forwards and steps; "
+                   "the small network's run with every (3, 3, 3) conv routed"),
         "conv_probe": ("conv_probe.cu", "tools/exp_mosaic_probe.py:24", tools["probe_launches"],
                        "tools.exp_conv_probe, both output orders"),
         "knn_dissect": ("knn_dissect.cu", "tools/exp_knn_dissect.py:27", tools["dissect_launches"],

@@ -19,15 +19,22 @@ both layers itself:
 :func:`read_ckpt` returns the network's ``params``, ``batch_stats`` and
 ``constants`` trees as numpy, which
 :func:`~nextou_tpu_torch.compat.weights.variables_to_state_dict` maps onto
-the port's weights, and the ``extra`` dict. Only the network is read:
-resuming training (``--c``) from a ``.ckpt`` is not supported, since the
-optimizer state's layout (optax's) is not the port's.
+the port's weights, the ``extra`` dict, and the optimizer's state as far as
+the port's holds it: the trace of optax's ``trace`` transform (the
+momentum, a tree shaped like ``params``) and the step.
+:func:`~nextou_tpu_torch.compat.weights.load_train_state` loads all of it
+into the port's train state, so that a training the JAX package began
+resumes in the port (``train/checkpoint.py``). The other entries of the
+optimizer's state hold no arrays (the clip and the weight decay keep none)
+or the step again (the schedule's count); the state's ``rng``, a JAX key,
+has no counterpart in a torch generator and is not read.
 """
 
 from __future__ import annotations
 
 import pickle
 import struct
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -169,14 +176,42 @@ def msgpack_restore(data: bytes, raw: bool = False):
     return _unchunk(out)
 
 
-def read_ckpt(path: str) -> tuple[dict, dict]:
-    """``(variables, extra)`` of a ``nextou_tpu`` ``.ckpt``: the network's
-    ``{'params', 'batch_stats', 'constants'}`` trees as numpy, and the
-    trainer's plain ``extra`` values."""
+class Checkpoint(NamedTuple):
+    """A ``nextou_tpu`` ``.ckpt`` as numpy: ``variables`` is the network's
+    ``{'params', 'batch_stats', 'constants'}`` trees, ``extra`` the
+    trainer's plain values, ``momentum`` the trace of optax's ``trace``
+    transform (shaped like ``params``; None where the state holds none) and
+    ``step`` the number of updates made."""
+
+    variables: dict
+    extra: dict
+    momentum: dict | None
+    step: int
+
+
+def _find_trace(tree):
+    """The ``trace`` entry of an optax chain's state as flax serializes it
+    (a tuple becomes a dict keyed '0', '1', ...; a named tuple a dict of its
+    fields)."""
+    if not isinstance(tree, dict):
+        return None
+    if "trace" in tree:
+        return tree["trace"]
+    for value in tree.values():
+        found = _find_trace(value)
+        if found is not None:
+            return found
+    return None
+
+
+def read_ckpt(path: str) -> Checkpoint:
+    """A ``nextou_tpu`` ``.ckpt``'s network, extra values, momentum and
+    step (:class:`Checkpoint`)."""
     with open(path, "rb") as f:
         payload = RestrictedUnpickler(f).load()
     if not isinstance(payload, dict) or "state_bytes" not in payload:
         raise ValueError(f"{path} is not a nextou_tpu checkpoint")
     state = msgpack_restore(payload["state_bytes"])
     variables = {k: state.get(k) or {} for k in ("params", "batch_stats", "constants")}
-    return variables, payload.get("extra", {})
+    return Checkpoint(variables, payload.get("extra", {}), _find_trace(state.get("opt_state")),
+                      int(state.get("step", 0)))

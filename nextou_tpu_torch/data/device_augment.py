@@ -192,7 +192,12 @@ def affine_resample(vol: torch.Tensor, mat, offset, order: int, mode: str, cval:
     'constant', on ``vol``'s device, evaluated only at the output indices
     ``out_origin + [0, out_shape)`` (default: the whole volume). ``vol`` is
     (*lead, *sp) with ``len(mat)`` spatial axes; the leading axes share the
-    coordinates. ``mat`` and ``offset`` are host arrays (float64)."""
+    coordinates. ``mat`` and ``offset`` are host arrays (float64).
+
+    In 'constant' mode the domain is the host path's
+    (``native.affine_transform``): scipy's [0, n-1] at order 0, and at
+    order 1 [-0.5, n-0.5] with the taps beyond the edge clamped to it, so
+    the half-voxel shell at the edge takes the edge's values, not ``cval``."""
     dim = len(mat)
     shape = tuple(vol.shape[vol.ndim - dim:])
     out_shape = shape if out_shape is None else tuple(out_shape)
@@ -231,8 +236,13 @@ def affine_resample(vol: torch.Tensor, mat, offset, order: int, mode: str, cval:
                 term = (f[0] if bits[0] else g[0]) * (f[1] if bits[1] else g[1]) * corner(*bits)
                 out = term if out is None else out + term
         out = out.to(vol.dtype)
-    if const:  # scipy's 'constant' domain is [0, n-1] on the unrounded coordinate
-        ok = torch.stack([(c >= 0) & (c <= n - 1) for c, n in zip(coords, shape)]).all(0)
+    if const:
+        # the host path's domain on the unrounded coordinate
+        # (native/resample.cpp): scipy's [0, n-1] at order 0, [-0.5, n-0.5]
+        # at order 1, where the taps beyond the edge are clamped to it
+        lo_edge, hi_edge = (0.0, 1.0) if order == 0 else (-0.5, 0.5)
+        ok = torch.stack([(c >= lo_edge) & (c <= n - hi_edge)
+                          for c, n in zip(coords, shape)]).all(0)
         out = torch.where(ok, out, torch.as_tensor(cval, dtype=vol.dtype, device=vol.device))
     return out
 

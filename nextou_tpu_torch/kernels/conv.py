@@ -343,3 +343,11 @@ def conv_kernel_wins(in_spatial, C: int, Co: int, kernel, stride) -> bool:
     if out_sp[1] % 2 or out_sp[2] < 48:
         return False
     return math.prod(in_spatial) >= 64 * 96 * 112 and max(C, Co) <= 192
+
+
+def every_333_conv(in_spatial, C: int, Co: int, kernel, stride) -> bool:
+    """A region wider than :func:`conv_kernel_wins`'s: every (3, 3, 3) conv.
+    Set in its place in ``nn.conv_blocks`` (as the conv tests and
+    ``chip_smoke.py`` do), it lets a network too small for the region run
+    K5 at each such conv."""
+    return tuple(kernel) == (3, 3, 3)

@@ -123,7 +123,7 @@ def load_model(spec: ModelSpec, checkpoint: str, device: torch.device,
     ``conv_kernel`` as :class:`~nextou_tpu_torch.models.nextou.NexToU` takes it."""
     model = NexToU(spec, dtype=compute_dtype(device), conv_kernel=conv_kernel, device=device)
     if checkpoint.endswith(".ckpt"):
-        model.load_state_dict(variables_to_state_dict(read_ckpt(checkpoint)[0], spec))
+        model.load_state_dict(variables_to_state_dict(read_ckpt(checkpoint).variables, spec))
     else:
         ckpt = torch.load(checkpoint, map_location=device, weights_only=True)
         model.load_state_dict(extract_network_weights(ckpt))

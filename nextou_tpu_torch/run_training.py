@@ -11,6 +11,15 @@ and (unless ``-p`` names another) ``nnUNetPlans.json``. The output folder
 every 50 epochs) and ``validation/summary.json``;
 ``python -m nextou_tpu_torch.predict`` serves ``checkpoint_final.pth``.
 
+``--c`` resumes from ``checkpoint_latest.pth``, or where the folder has none
+from ``checkpoint_latest.ckpt``: a fold that ``nextou_tpu`` began goes on in
+the port. Its network, BatchNorm statistics, momentum, step, epoch, EMA and
+log carry over; its JAX random key has no torch counterpart, so the draws
+after the resume (DropPath, the stochastic graph, the loader, which starts
+again from the seed as in either package) do not continue the JAX run's
+sequence. ``--val`` reads ``checkpoint_final.pth``, or
+``checkpoint_final.ckpt`` where that is absent.
+
 Trains on the card (``--device cuda``, the default) unless ``--device cpu``
 asks for the CPU; without a card and without that option it fails with
 torch's own error. ``--device-da`` picks where the augmentation runs:
@@ -47,15 +56,16 @@ def main(argv=None):
     ap.add_argument("-p", "--plans", default=None, help="plans json path")
     ap.add_argument("-o", "--output", default=None, help="output folder")
     ap.add_argument("--c", "--continue", dest="resume", action="store_true",
-                    help="resume from checkpoint_latest.pth")
+                    help="resume from checkpoint_latest.pth (or a nextou_tpu fold's "
+                         "checkpoint_latest.ckpt)")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--iters", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="instead of training, write a torch.profiler trace of N steps")
     ap.add_argument("--val", action="store_true",
-                    help="skip training: load checkpoint_final.pth and run the final "
-                         "validation (sliding-window prediction + summary.json)")
+                    help="skip training: load checkpoint_final.pth (or .ckpt) and run the "
+                         "final validation (sliding-window prediction + summary.json)")
     ap.add_argument("--npz", action="store_true",
                     help="save each validation case's probabilities in validation/{case}.npz")
     ap.add_argument("-pretrained_weights", "--pretrained-weights", default=None, metavar="CKPT",
@@ -102,22 +112,35 @@ def _train(args, device):
     )
     if args.pretrained_weights:
         trainer.load_pretrained_weights(args.pretrained_weights)
-    latest = os.path.join(output, "checkpoint_latest.pth")
     if args.resume:
-        if os.path.exists(latest):
+        latest = checkpoint_path(output, "checkpoint_latest")
+        if latest is not None:
             trainer.load_checkpoint(latest)
         else:
-            print(f"WARNING: --c requested but {latest} does not exist (checkpoint_latest is "
-                  "written every 50 epochs); starting from scratch")
+            print(f"WARNING: --c requested but {output} holds no checkpoint_latest.pth or .ckpt "
+                  "(checkpoint_latest is written every 50 epochs); starting from scratch")
     if args.profile:
         trainer.profile_steps(args.profile)
         return trainer
     if args.val:
-        trainer.load_checkpoint(os.path.join(output, "checkpoint_final.pth"))
+        final = checkpoint_path(output, "checkpoint_final")
+        if final is None:
+            raise FileNotFoundError(f"{output} holds no checkpoint_final.pth or .ckpt")
+        trainer.load_checkpoint(final)
     else:
         trainer.run_training()
     trainer.perform_actual_validation(save_probabilities=args.npz)
     return trainer
+
+
+def checkpoint_path(folder: str, stem: str) -> str | None:
+    """``folder/stem.pth`` (the port's), else ``folder/stem.ckpt`` (a
+    ``nextou_tpu`` fold's), else None."""
+    for ext in (".pth", ".ckpt"):
+        path = os.path.join(folder, stem + ext)
+        if os.path.exists(path):
+            return path
+    return None
 
 
 if __name__ == "__main__":

@@ -9,10 +9,14 @@ weights_only=True)``), the optimizer's momentum and step under
 entries (epoch, EMA pseudo-Dice, best EMA, the per-epoch history) as plain
 Python values. Everything in it loads with ``weights_only=True``.
 
-A ``nextou_tpu`` ``.ckpt`` (flax msgpack in a pickle) seeds
-``-pretrained_weights`` too, read by :mod:`nextou_tpu_torch.compat.flax_ckpt`
-without jax, flax or msgpack. Resuming a training (``--c``) from one is not
-supported: the optimizer state's layout (optax's) is not the port's.
+A ``nextou_tpu`` ``.ckpt`` (flax msgpack in a pickle), read by
+:mod:`nextou_tpu_torch.compat.flax_ckpt` without jax, flax or msgpack, seeds
+``-pretrained_weights`` too, and :func:`load_checkpoint` resumes a training
+from one: the network, the BatchNorm statistics, optax's momentum and the
+step load into the port's state (``compat.load_train_state``). The JAX
+state's ``rng`` has no torch counterpart, so the model's generator keeps
+its own state: the draws after a resume (DropPath, the stochastic graph)
+do not continue the JAX run's sequence.
 """
 
 from __future__ import annotations
@@ -23,8 +27,16 @@ from typing import Any
 import torch
 
 from nextou_tpu_torch.compat.flax_ckpt import read_ckpt
-from nextou_tpu_torch.compat.weights import extract_network_weights, variables_to_state_dict
+from nextou_tpu_torch.compat.weights import (
+    extract_network_weights,
+    load_train_state,
+    variables_to_state_dict,
+)
 from nextou_tpu_torch.train.state import TrainState
+
+# the entries that nextou_tpu/train/trainer.py::save_checkpoint names
+# otherwise, under the names this port's trainer writes and reads
+_JAX_EXTRA_NAMES = {"epoch": "current_epoch", "best_ema": "_best_ema", "log_history": "logging"}
 
 
 def save_checkpoint(path: str, state: TrainState, extra: dict[str, Any] | None = None) -> None:
@@ -44,8 +56,15 @@ def save_checkpoint(path: str, state: TrainState, extra: dict[str, Any] | None =
 
 
 def load_checkpoint(path: str, state: TrainState) -> tuple[TrainState, dict]:
-    """Restore ``state`` in place from ``path``; returns it and the
-    checkpoint's other entries."""
+    """Restore ``state`` in place from ``path``, a checkpoint of this port
+    or a ``nextou_tpu`` ``.ckpt``; returns it and the checkpoint's other
+    entries (a ``.ckpt``'s under this port's names)."""
+    if path.endswith(".ckpt"):
+        ckpt = read_ckpt(path)
+        if ckpt.momentum is None:
+            raise ValueError(f"{path} holds no optimizer trace to resume from")
+        load_train_state(state, ckpt.variables, ckpt.momentum, ckpt.step, state.model.spec)
+        return state, {_JAX_EXTRA_NAMES.get(k, k): v for k, v in ckpt.extra.items()}
     device = next(state.model.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=True)
     opt = ckpt.pop("optimizer_state")
@@ -75,7 +94,7 @@ def restore_pretrained(state: TrainState, path: str) -> tuple[TrainState, dict]:
     device = next(state.model.parameters()).device
     own = state.model.state_dict()
     if path.endswith(".ckpt"):
-        src = variables_to_state_dict(read_ckpt(path)[0], state.model.spec, lenient=True)
+        src = variables_to_state_dict(read_ckpt(path).variables, state.model.spec, lenient=True)
         # every other entry maps from a params or batch_stats leaf
         own = {k: v for k, v in own.items()
                if not k.endswith((".num_batches_tracked", "relative_pos"))}

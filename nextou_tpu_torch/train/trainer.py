@@ -620,6 +620,8 @@ class NexToUTrainer:
         save_checkpoint(os.path.join(self.output_folder, name), self.state, extra)
 
     def load_checkpoint(self, path: str) -> dict:
+        """Resume from ``path``, this port's ``.pth`` or a ``nextou_tpu``
+        ``.ckpt``: training goes on from the epoch after the one saved."""
         self.initialize()
         self.state, extra = load_checkpoint(path, self.state)
         self.current_epoch = extra.get("current_epoch", 0) + 1

@@ -189,7 +189,7 @@ def test_import_writes_the_source_weights_and_what_the_jax_tool_writes(upstream,
     for name, want in upstream["weights"].items():
         assert torch.equal(got[name], want), name
     # the JAX tool's .ckpt of the same .pth, read without jax
-    variables, extra = read_ckpt(os.path.join(ref, "checkpoint_final.ckpt"))
+    variables, extra, *_ = read_ckpt(os.path.join(ref, "checkpoint_final.ckpt"))
     assert extra["epoch"] == 7
     spec = predict.load_dataset(upstream["folder"], CONFIG)[2]
     from_jax = variables_to_state_dict(variables, spec)

@@ -31,6 +31,7 @@ from nextou_tpu_torch.kernels.conv import (
     conv3d_cuda,
     conv3d_reference,
     conv_kernel_wins,
+    every_333_conv,
 )
 from nextou_tpu_torch.losses import CompoundLossSpec, deep_supervision_weights
 from nextou_tpu_torch.models import NexToU, presets
@@ -228,8 +229,7 @@ def test_flagship_geometry_routes_the_listed_convs(mode, want, monkeypatch):
 def _region_of_every_333_conv(monkeypatch):
     """small_3d_spec's convs are too small for the kernel's region: let the
     region take every (3, 3, 3) conv, so that each one runs the kernel path."""
-    monkeypatch.setattr(conv_blocks, "conv_kernel_wins",
-                        lambda sp, c, co, kernel, stride: tuple(kernel) == (3, 3, 3))
+    monkeypatch.setattr(conv_blocks, "conv_kernel_wins", every_333_conv)
 
 
 def _halved(model):

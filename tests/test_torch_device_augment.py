@@ -184,18 +184,26 @@ def test_affine_resample_matches_scipy_and_the_jax_device_path(shape, order, mod
     ref = ndimage.affine_transform(vol, mat, offset=off, order=order, mode=mode)
     jax_got = np.asarray(jax_affine_resample(jnp.asarray(vol), jnp.asarray(mat),
                                              jnp.asarray(off), order, mode))
-    if order == 1:
-        np.testing.assert_allclose(got, ref, atol=1e-5)
-    else:
-        assert (got == ref).mean() >= 0.999
-    # the JAX device path: f32 coordinates (they flip order-0 ties), and a
-    # constant-mode domain of [-0.5, n - 0.5] at order 1 where scipy's is [0, n - 1]
+    # scipy's 'constant' domain, [0, n - 1]; at order 1 the host path's is
+    # [-0.5, n - 0.5] with clamped taps, and so is this function's: the half-
+    # voxel edge shell between them holds the edge's values, not cval
     inside = np.ones(shape, bool)
     if mode == "constant":
         inside = ndimage.affine_transform(np.ones(shape), mat, offset=off, order=0,
                                           mode="constant") == 1
     if order == 1:
-        np.testing.assert_allclose(got[inside], jax_got[inside], atol=2e-4)
+        np.testing.assert_allclose(got[inside], ref[inside], atol=1e-5)
+        host = native.affine_transform(vol, mat, off, order, mode)
+        np.testing.assert_allclose(got, host, rtol=0, atol=1e-6)
+        if mode == "constant":
+            shell = ~inside & (host != 0)
+            assert shell.sum() > 0 and (got[shell] != 0).all()
+    else:
+        assert (got == ref).mean() >= 0.999
+    # the JAX device path: f32 coordinates (they flip order-0 ties), and the
+    # same order-1 constant domain
+    if order == 1:
+        np.testing.assert_allclose(got, jax_got, atol=2e-4)
     else:
         assert (got == jax_got).mean() >= 0.99
     # the final crop alone is the crop of the whole volume, bit for bit

@@ -2,13 +2,15 @@
 (``nextou_tpu_torch.compat.flax_ckpt``), on the CPU, against what
 ``nextou_tpu.train.checkpoint`` writes and restores.
 
-A ``.ckpt`` of the JAX trainer reads back bit-equal, in a process that
-imports neither jax, flax nor msgpack; ``predict -chk *.ckpt`` serves the
-same probabilities as the same weights in a ``.pth``; ``-pretrained_weights
-*.ckpt`` reports what the JAX package's ``restore_pretrained`` reports and
-loads the same values; flax's chunked arrays decode; a pickle that names any
-other global than builtins' containers and numpy's array reconstruction is
-refused.
+A ``.ckpt`` of the JAX trainer reads back bit-equal (the network, optax's
+momentum and the step), in a process that imports neither jax, flax nor
+msgpack (``tests/test_torch_trajectory.py`` resumes a JAX fold in the
+port); ``predict -chk *.ckpt`` serves the same probabilities as the same
+weights in a ``.pth``;
+``-pretrained_weights *.ckpt`` reports what the JAX package's
+``restore_pretrained`` reports and loads the same values; flax's chunked
+arrays decode; a pickle that names any other global than builtins'
+containers and numpy's array reconstruction is refused.
 """
 
 import json
@@ -68,15 +70,18 @@ def saved(tmp_path_factory):
 
 
 def test_ckpt_reads_back_bit_equal(saved):
-    variables, extra = read_ckpt(saved["ckpt"])
-    want = jax.device_get(saved["trainer"].state.model_variables())
-    flat_want = jax.tree_util.tree_leaves_with_path(want)
-    flat_got = dict(jax.tree_util.tree_leaves_with_path(variables))
-    assert len(flat_got) == len(flat_want) > 0
-    for path, w in flat_want:
-        g = flat_got[path]
-        assert g.dtype == np.asarray(w).dtype and g.shape == np.shape(w), path
-        np.testing.assert_array_equal(g, np.asarray(w), err_msg=str(path))
+    variables, extra, momentum, step = read_ckpt(saved["ckpt"])
+    state = jax.device_get(saved["trainer"].state)
+    trace = next(s for s in state.opt_state if "trace" in s._fields).trace
+    for got, want in ((variables, state.model_variables()), (momentum, trace)):
+        flat_want = jax.tree_util.tree_leaves_with_path(want)
+        flat_got = dict(jax.tree_util.tree_leaves_with_path(got))
+        assert len(flat_got) == len(flat_want) > 0
+        for path, w in flat_want:
+            g = flat_got[path]
+            assert g.dtype == np.asarray(w).dtype and g.shape == np.shape(w), path
+            np.testing.assert_array_equal(g, np.asarray(w), err_msg=str(path))
+    assert step == int(state.step) == 0
     assert extra["trainer"] == "nnUNetTrainer_NexToU" and extra["configuration"] == CONFIG
     assert extra["log_history"] == saved["trainer"].log_history
     # the whole state, step and optimizer state included, as flax restores it
@@ -91,7 +96,7 @@ def test_ckpt_reads_back_bit_equal(saved):
 
 def test_predict_serves_a_ckpt_like_the_same_pth(saved, tmp_path):
     model = saved["model"]
-    variables, _ = read_ckpt(saved["ckpt"])
+    variables = read_ckpt(saved["ckpt"]).variables
     spec = predict.load_dataset(saved["folder"], CONFIG)[2]
     torch.save({"network_weights": variables_to_state_dict(variables, spec)},
                os.path.join(model, "checkpoint_final.pth"))
@@ -175,7 +180,7 @@ def test_ckpt_reading_imports_neither_jax_flax_nor_msgpack(saved):
         "import sys, torch\n"
         "from nextou_tpu_torch import predict\n"
         "from nextou_tpu_torch.compat.flax_ckpt import read_ckpt\n"
-        f"variables, extra = read_ckpt({saved['ckpt']!r})\n"
+        f"variables, extra, momentum, step = read_ckpt({saved['ckpt']!r})\n"
         f"spec = predict.load_dataset({saved['folder']!r}, {CONFIG!r})[2]\n"
         f"model = predict.load_model(spec, {saved['ckpt']!r}, torch.device('cpu'))\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -184,3 +189,4 @@ def test_ckpt_reading_imports_neither_jax_flax_nor_msgpack(saved):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=300, check=True)
     assert out.stdout.strip() == "[]"
+
