@@ -101,7 +101,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     in phase 9);
 14. the trainer: five labelled 1x64x280x240 cases with all 14 labels go
     through ``nextou_tpu_torch.run_training.main`` (``nnUNetTrainer_NexToU``,
-    fold 0, 2 epochs of 4 iterations, 50 eval steps per epoch, then the
+    fold 0, 2 epochs of 4 iterations, 10 eval steps per epoch, then the
     final validation), and ``predict.main`` serves its
     ``checkpoint_final.pth``. K3 and K4 launched exactly 14 times per train
     step, K1 14 times per eval and per validation forward, K5 never; the
@@ -216,7 +216,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     3d_fullres 64x192x160 at batch 2, 3d_fullres_nextou 64x224x192 with
     33/324, the trainer's spec of it equal to ``flagship_3d_spec()`` field
     for field, five preprocessed cases; (c) ``run_training.main`` of the
-    planned 3d_fullres_nextou (1 epoch x 4 iterations, 50 eval steps, the
+    planned 3d_fullres_nextou (1 epoch x 4 iterations, 10 eval steps, the
     validation): K3 and K4 exactly 14 launches per step, K1 14 per eval
     step and validation forward, losses finite, ``checkpoint_final.pth`` and
     ``validation/summary.json`` written, seconds per iteration beside phase
@@ -236,15 +236,42 @@ Phases (each prints its lines; any failure raises and exits non-zero):
     dataset, steps 0-9 with Dice + CE and 10-19 with the RAVIR BTI loss, once
     with ``conv_kernel`` "0" and once "1": per step the loss within rtol 1e-4,
     the gradient norm 2e-2, the update 10% in L2, the TI term alone 1e-3 (or,
-    on a step at a near tie of a kNN selection or a max, within 1.5 x the
-    CPU's own floor under a one-ulp change of its parameters, printed), the
-    worst of each, launches exact; (b) the flagship at full width through
-    ``run_training.main -tr nnUNetTrainer_NexToU_BTI_Synapse`` on phase 14's
-    cases, 3 epochs x 50 iterations, device DA, 10 eval steps per
-    epoch, the validation: every loss and BTI term finite, epoch 2's mean
+    on a step at a near tie of a kNN selection or a max, within the widths of
+    the CPU's step from its state at 1 +- 1e-7 or 1 +- 1e-6, at no more than
+    4 of the 40, printed), the worst of each, launches exact; (b) the
+    flagship at full width through ``run_training.main -tr
+    nnUNetTrainer_NexToU_BTI_Synapse`` on phase 14's cases, 3 epochs x 20
+    iterations, device DA, 10 eval steps per epoch, the validation: every
+    loss and BTI term finite, epoch 2's mean
     train loss below epoch 0's, K3 and K4 14 launches per step, K1 14 per
     eval step and validation forward; seconds per iteration, the loader's
-    share, peak device memory, the phase's seconds.
+    share, peak device memory, the phase's seconds;
+24. the 2D family at full width (after phase 23): ``ravir_2d_spec`` (512 x
+    448, 7 stages, 32 ... 512 channels, 3 classes) with the loss of
+    ``nnUNetTrainer_NexToU_BTI_RAVIR`` (Dice + CE + the exclusion [[1, 2]] at
+    8-connectivity, lambda 1e-4), both taken from the trainer on the RAVIR 2d
+    plans. (a) K1 at every kNN shape of a served batch-4 forward, K2, K3 and
+    K4 at every shape of a batch-12 train step (C 256 and 512, the gather's
+    loop of 32 channels, streamed and window mode) and K4 on a hot candidate
+    at (12, 896, 896, 512, 32), by phases 3 and 4's rules; (b) a narrow 2D
+    network of the RAVIR schedule in f32 (4 x 4 bottleneck windows) served on
+    the card against the CPU by phase 6's rule, then, at a 128 x 128 patch
+    and after 20 Dice + CE steps on the CPU, 4 train steps with the RAVIR
+    loss, card against CPU, by phase 23 (a)'s widths and witness, at most 1
+    of the 4 beyond a width, each step beside the CPU's own move at 1 +- 1e-7
+    of its state; (c) ``ravir_2d_spec`` at batch 12, bf16,
+    seed-0 weights: the forward's milliseconds, 3 train steps with deep
+    supervision, peak memory, and one 768 x 768 image served through
+    ``predict.build_predictor`` with mirror axes (0, 1); (d) a RAVIR-like raw
+    dataset (23 + 1 images of 1 x 768 x 768 at (999, 1, 1), arteries and veins
+    as crossing curves) through ``plan_and_preprocess.main -c 2d`` (2d_nextou
+    planned at 640 x 640, 8 stages, batch 3, every grapher at 512 channels),
+    ``run_training.main 2d_nextou -tr nnUNetTrainer_NexToU_BTI_RAVIR`` (2 x 10,
+    10 eval steps an epoch, device DA, the validation) and ``predict.main
+    --raw`` of the test image; before the run, K1, K3 and K4 at every kNN
+    shape of the planned network (served batch 4, train batch 3: graphers at
+    40 x 40 ... 5 x 5, windows of 25 rows) by (a)'s rules. Launches exact throughout: K1 14 per forward,
+    K3 and K4 14 per step, K2 and K5 none.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record, each entry with the path its numbers were taken
@@ -268,13 +295,21 @@ import numpy as np
 import torch
 
 from nextou_tpu_torch.tools.exp_trainer_loop import LOADER_BATCHES, loader_seconds_per_batch
-from nextou_tpu_torch.tools.synthetic import labelled_case, write_dataset
-from nextou_tpu_torch.tools.timing import card, cuda_ms
+from nextou_tpu_torch.tools.lockstep import WIDTHS as RUN_WIDTHS
+from nextou_tpu_torch.tools.lockstep import lockstep, narrow_ravir_run
+from nextou_tpu_torch.tools.synthetic import (
+    RAVIR_DATASET_JSON, labelled_case, plans_for, retina_image, vessel_batch, vessel_map,
+    write_dataset,
+)
+from nextou_tpu_torch.tools.timing import card, cuda_ms, queued_cuda_ms
 
 # the near-tie bound of phases 3 and 4, the row share allowed to differ (in
 # its set of neighbours; in their order alone), and the fewest rows that
 # share is taken over
 TIE_GAP, MAX_ROWS_OFF, MAX_ROWS_REORDERED, MIN_ROWS = 1e-4, 1e-3, 1e-2, 10_000
+# the kNN kernels and their plain versions are timed in rounds of 5 calls
+# until the rounds have taken this many milliseconds; the median round counts
+KERNEL_TIMED_MS = 20.0
 TILE_BATCH, MIRRORS_PER_FORWARD = 2, 2
 TRAIN_BATCH = 2
 # the card's published peaks (H100 SXM): device memory, bf16 tensor cores,
@@ -531,18 +566,24 @@ class Selection:
                 f"(worst gap {self.worst_gap:.2e}, max|distance err| {self.dist_err:.3g})")
 
 
-def kernel_phase(spec, dev) -> Totals:
+def graphers(spec) -> int:
+    """The spec's graphers: kNN calls per forward."""
+    return sum(len(st.gnn) for st in (*spec.encoder, *spec.decoder))
+
+
+def kernel_phase(spec, dev, name: str = "flagship") -> Totals:
     from nextou_tpu_torch.core.pos_embed import relative_pos_bias
     from nextou_tpu_torch.kernels.knn import (
         _normalized, knn_max_neighbors, knn_max_neighbors_reference,
     )
 
     calls = knn_calls(spec, TILE_BATCH * MIRRORS_PER_FORWARD)
-    assert sum(calls.values()) == 14, calls
+    assert sum(calls.values()) == graphers(spec), calls
     gen = torch.Generator(device=dev).manual_seed(0)
     totals = {torch.bfloat16: Totals(), torch.float32: Totals()}
+    device = dict.fromkeys(totals, 0.0)
     for (B, N, M, C, k, self_graph), count in calls.items():
-        rel = torch.tensor(relative_pos_bias(C, N, M, 3), device=dev)
+        rel = torch.tensor(relative_pos_bias(C, N, M, spec.spatial_dims), device=dev)
         # the row share is a rate: small shapes draw fresh inputs until
         # MIN_ROWS rows are compared (one near tie in 672 rows is 0.15%)
         draws = math.ceil(MIN_ROWS / (B * N))
@@ -564,8 +605,12 @@ def kernel_phase(spec, dev) -> Totals:
                 err = max(err, (got.float() - want.float()).abs().max().item())
                 del got, want
             share = rows_off / (draws * B * N)
-            t_k1 = cuda_ms(lambda: knn_max_neighbors(x, k, y, rel))
-            t_plain = cuda_ms(lambda: knn_max_neighbors_reference(x, k, y, rel))
+            t_k1 = cuda_ms(lambda: knn_max_neighbors(x, k, y, rel), min_ms=KERNEL_TIMED_MS)
+            t_plain = cuda_ms(lambda: knn_max_neighbors_reference(x, k, y, rel),
+                              min_ms=KERNEL_TIMED_MS)
+            # the wrapper's kernels on the device alone: where t_k1 is far
+            # above it, the host's per-call work sets the time
+            t_dev = queued_cuda_ms(lambda: knn_max_neighbors(x, k, y, rel))
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_SPLIT_FLOPS
             # K1 reads the coordinates, the values (the raw features in the
             # coordinates' dtype: a tensor of its own) and the bias, and
@@ -574,11 +619,13 @@ def kernel_phase(spec, dev) -> Totals:
             moved = nbytes(xn, yn, rel) + vals.numel() * xn.element_size() + B * N * C * 4
             bound, by = bound_ms(moved, 2.0 * B * N * M * C, peak)
             totals[dtype].add(count, t_k1, t_plain, bound, by, err)
+            device[dtype] += count * (t_dev if t_dev is not None else math.nan)
             print(
                 f"K1 B={B} N={N} M={M} C={C} k={k} {str(dtype)[6:]} x{count}: "
                 f"rows off {rows_off}/{draws * B * N} = {share:.2e} "
                 f"(worst k/k+1 gap {worst_gap:.2e}) max|err| {err:.3g}  "
-                f"K1 {t_k1:.3f} ms ({first_design('K1', dtype, (B, N, M, C, k))})  "
+                f"K1 {t_k1:.3f} ms ({first_design('K1', dtype, (B, N, M, C, k))}; device "
+                + (f"{t_dev:.3f} ms" if t_dev is not None else "not measured") + ")  "
                 f"plain {t_plain:.3f} ms  bound {bound:.4f} ms ({by}); "
                 + plan_str(B, N, M, C, k, bf16=dtype == torch.bfloat16, self_graph=self_graph)
             )
@@ -586,8 +633,8 @@ def kernel_phase(spec, dev) -> Totals:
                 raise AssertionError(f"K1 disagrees with the plain version at {B, N, M, C, k}")
         torch.cuda.empty_cache()
     for dtype, t in totals.items():
-        print(f"K1 per flagship forward ({str(dtype)[6:]}): {t.ms:.3f} ms, "
-              f"plain {t.plain_ms:.3f} ms, bound {t.bound_ms:.3f} ms")
+        print(f"K1 per {name} forward ({str(dtype)[6:]}): {t.ms:.3f} ms (device "
+              f"{device[dtype]:.3f} ms), plain {t.plain_ms:.3f} ms, bound {t.bound_ms:.3f} ms")
     return totals[torch.bfloat16]
 
 
@@ -634,24 +681,28 @@ def k4_error(gy, yv, idx, maxv, g, k) -> tuple[float, float]:
     return diff.max().item(), (diff / tol).max().item()
 
 
-def train_kernel_phase(spec, dev) -> dict[str, Totals]:
+def train_kernel_phase(spec, dev, batch: int = TRAIN_BATCH,
+                       name: str = "flagship") -> dict[str, Totals]:
+    """K2, K3 and K4 at every kNN shape of one train step of ``spec`` at
+    ``batch``, then K4 on a hot candidate at the step's largest graph (most
+    queries x candidates)."""
     from nextou_tpu_torch.core.graph import l2_normalize
     from nextou_tpu_torch.core.pos_embed import relative_pos_bias
     from nextou_tpu_torch.kernels.knn import (
         knn_indices_cuda, knn_indices_reference, knn_max_bwd_cuda, knn_max_bwd_reference,
-        knn_max_idx_cuda, knn_max_idx_reference, knn_max_neighbors,
+        knn_max_idx_cuda, knn_max_idx_reference,
     )
-    from nextou_tpu_torch.tools.exp_knn_bwd import device_ms_by_kernel
+    from nextou_tpu_torch.tools.exp_knn_bwd import NoDeviceEvents, device_ms_by_kernel
 
-    calls = knn_calls(spec, TRAIN_BATCH)
-    assert sum(calls.values()) == 14, calls
+    calls = knn_calls(spec, batch)
+    assert sum(calls.values()) == graphers(spec), calls
     gen = torch.Generator(device=dev).manual_seed(10)
     totals = {
-        name: {torch.bfloat16: Totals(), torch.float32: Totals()}
-        for name in ("knn_max_idx", "knn_max_bwd")
+        kernel: {torch.bfloat16: Totals(), torch.float32: Totals()}
+        for kernel in ("knn_max_idx", "knn_max_bwd")
     }
     for (B, N, M, C, k, self_graph), count in calls.items():
-        rel = torch.tensor(relative_pos_bias(C, N, M, 3), device=dev).contiguous()
+        rel = torch.tensor(relative_pos_bias(C, N, M, spec.spatial_dims), device=dev).contiguous()
         draws = math.ceil(MIN_ROWS / (B * N))
         for dtype in (torch.bfloat16, torch.float32):
             err3 = err4 = worst4 = 0.0
@@ -686,13 +737,20 @@ def train_kernel_phase(spec, dev) -> dict[str, Totals]:
                 err, worst = k4_error(gy, yv, idx3, maxv, g, k)
                 err4, worst4 = max(err4, err), max(worst4, worst)
                 del want_max
-            t_k3 = cuda_ms(lambda: knn_max_idx_cuda(xn, yn, yv, rel, k))
-            t_k2 = cuda_ms(lambda: knn_indices_cuda(xn, yn, rel, k))
-            t_k4 = cuda_ms(lambda: knn_max_bwd_cuda(yv, idx3, maxv, g, k))
-            passes = device_ms_by_kernel(lambda: knn_max_bwd_cuda(yv, idx3, maxv, g, k), 5)
-            p_k3 = cuda_ms(lambda: knn_max_idx_reference(xn, yn, yv, rel, k))
-            p_k2 = cuda_ms(lambda: knn_indices_reference(xn, yn, rel, k))
-            p_k4 = cuda_ms(lambda: knn_max_bwd_reference(yv, idx3, maxv, g, k))
+            t_k3 = cuda_ms(lambda: knn_max_idx_cuda(xn, yn, yv, rel, k), min_ms=KERNEL_TIMED_MS)
+            t_k2 = cuda_ms(lambda: knn_indices_cuda(xn, yn, rel, k), min_ms=KERNEL_TIMED_MS)
+            t_k4 = cuda_ms(lambda: knn_max_bwd_cuda(yv, idx3, maxv, g, k), min_ms=KERNEL_TIMED_MS)
+            try:
+                passes = device_ms_by_kernel(lambda: knn_max_bwd_cuda(yv, idx3, maxv, g, k), 5)
+            except NoDeviceEvents:
+                # late in a long process CUPTI may record nothing at all:
+                # only K4's split by pass is lost, its time and check stay
+                passes = {}
+            p_k3 = cuda_ms(lambda: knn_max_idx_reference(xn, yn, yv, rel, k),
+                           min_ms=KERNEL_TIMED_MS)
+            p_k2 = cuda_ms(lambda: knn_indices_reference(xn, yn, rel, k), min_ms=KERNEL_TIMED_MS)
+            p_k4 = cuda_ms(lambda: knn_max_bwd_reference(yv, idx3, maxv, g, k),
+                           min_ms=KERNEL_TIMED_MS)
             flops = 2.0 * B * N * M * C
             b_k3, by3 = bound_ms(nbytes(xn, yn, yv, rel, maxv, idx3), flops, PEAK_SPLIT_FLOPS)
             b_k2, by2 = bound_ms(nbytes(xn, yn, rel, idx2), flops, PEAK_SPLIT_FLOPS)
@@ -707,7 +765,7 @@ def train_kernel_phase(spec, dev) -> dict[str, Totals]:
                 f"K2 {t_k2:.3f} ms ({first_design('K2', torch.float32, (B, N, M, C, k))}) "
                 f"plain {p_k2:.3f} bound {b_k2:.4f} ({by2}); "
                 f"K4 {t_k4:.4f} ms ({first_design('K4', dtype, (B, N, M, C, k))}; device "
-                + ", ".join(f"{n} {t:.4f}" for n, t in passes.items())
+                + (", ".join(f"{n} {t:.4f}" for n, t in passes.items()) or "split not measured")
                 + f") plain {p_k4:.3f} bound {b_k4:.4f} ({by4}) "
                 f"max|err| {err4:.3g} = {worst4:.3f} of tolerance, "
                 + bwd_plan_str(B, N, M, C, k, dtype == torch.bfloat16)
@@ -717,8 +775,40 @@ def train_kernel_phase(spec, dev) -> dict[str, Totals]:
                 raise AssertionError(f"K4 disagrees with the plain version at {B, N, M, C, k}")
         torch.cuda.empty_cache()
 
-    # K4 where every candidate receives one contribution: bit-exact, and the
-    # same bits on a second launch
+    # one candidate in every row (at the largest graph's B, N, M, C and k):
+    # its rows in chunks whose partials are summed in chunk order; ties among them
+    hot = max(calls, key=lambda c: c[1] * c[2])[:5]
+    hb, hn, hm, hc, hk = hot
+    for dtype in (torch.bfloat16, torch.float32):
+        yv, idx, g = hot_candidate_case(dev, hb, hn, hm, hc, hk)
+        yv = yv.to(dtype)
+        maxv = torch.stack([yv[b].float()[idx[b].long()].amax(1) for b in range(hb)])
+        gy = knn_max_bwd_cuda(yv, idx, maxv, g, hk)
+        err, worst = k4_error(gy, yv, idx, maxv, g, hk)
+        if worst > 1.0:
+            raise AssertionError(f"K4 disagrees with the plain version on the hot candidate ({dtype})")
+        if not torch.equal(gy, knn_max_bwd_cuda(yv, idx, maxv, g, hk)):
+            raise AssertionError(f"K4 gave other bits on a second launch, hot candidate ({dtype})")
+        print(f"K4 hot candidate {hot} values {str(dtype)[6:]}: "
+              f"max|err| {err:.3g} = {worst:.3f} of tolerance, the same bits twice; "
+              + bwd_plan_str(*hot, dtype == torch.bfloat16))
+        del yv, idx, g, maxv, gy
+    for kernel, by_dtype in totals.items():
+        for dtype, t in by_dtype.items():
+            print(f"{kernel} per {name} train step (values {str(dtype)[6:]}): {t.ms:.3f} ms, "
+                  f"plain {t.plain_ms:.3f} ms, bound {t.bound_ms:.3f} ms")
+    return {kernel: by_dtype[torch.bfloat16] for kernel, by_dtype in totals.items()}
+
+
+def k4_any_shape_phase(dev) -> None:
+    """K4's checks that hold at any shape: bit-exact, and the same bits on a
+    second launch, where every candidate receives one contribution; the
+    candidates' gradient kept with bf16 queries and f32 candidates."""
+    from nextou_tpu_torch.core.graph import l2_normalize
+    from nextou_tpu_torch.kernels.knn import (
+        knn_max_bwd_cuda, knn_max_bwd_reference, knn_max_idx_cuda, knn_max_neighbors,
+    )
+
     (x, y, g), k = order_unambiguous_case(dev)
     xn, yn = l2_normalize(x).contiguous(), l2_normalize(y).contiguous()
     maxv, idx = knn_max_idx_cuda(xn, yn, y, None, k)
@@ -728,24 +818,9 @@ def train_kernel_phase(spec, dev) -> dict[str, Totals]:
         raise AssertionError("K4 is not bit-exact where the add order cannot matter")
     if not torch.equal(gy, knn_max_bwd_cuda(y, idx, maxv, g, k)):
         raise AssertionError("K4 gave other bits on a second launch")
-    # one candidate in every row of 10,752 (s3 pool's M, C and k): its rows in
-    # chunks whose partials are summed in chunk order; ties among them
-    for dtype in (torch.bfloat16, torch.float32):
-        yv, idx, g = hot_candidate_case(dev, 2, 10752, 1344, 264, 28)
-        yv = yv.to(dtype)
-        maxv = torch.stack([yv[b].float()[idx[b].long()].amax(1) for b in range(2)])
-        gy = knn_max_bwd_cuda(yv, idx, maxv, g, 28)
-        err, worst = k4_error(gy, yv, idx, maxv, g, 28)
-        if worst > 1.0:
-            raise AssertionError(f"K4 disagrees with the plain version on the hot candidate ({dtype})")
-        if not torch.equal(gy, knn_max_bwd_cuda(yv, idx, maxv, g, 28)):
-            raise AssertionError(f"K4 gave other bits on a second launch, hot candidate ({dtype})")
-        print(f"K4 hot candidate (2, 10752, 1344, 264, 28) values {str(dtype)[6:]}: "
-              f"max|err| {err:.3g} = {worst:.3f} of tolerance, the same bits twice; "
-              + bwd_plan_str(2, 10752, 1344, 264, 28, dtype == torch.bfloat16))
-        del yv, idx, g, maxv, gy
     # bf16 queries with f32 candidates: the f32 max is saved, so the
     # candidates' gradient is not lost
+    gen = torch.Generator(device=dev).manual_seed(11)
     yt = torch.randn(2, 150, 12, generator=gen, device=dev).requires_grad_()
     xt = torch.randn(2, 70, 12, generator=gen, device=dev).bfloat16()
     out = knn_max_neighbors(xt, 9, yt, None, train=True)
@@ -755,11 +830,6 @@ def train_kernel_phase(spec, dev) -> dict[str, Totals]:
         raise AssertionError("mixed bf16/f32: the candidates' gradient is zero")
     print("K4 bit-exact on the order-unambiguous case, the same bits twice; "
           "mixed bf16/f32 gradient non-zero")
-    for name, by_dtype in totals.items():
-        for dtype, t in by_dtype.items():
-            print(f"{name} per flagship train step (values {str(dtype)[6:]}): {t.ms:.3f} ms, "
-                  f"plain {t.plain_ms:.3f} ms, bound {t.bound_ms:.3f} ms")
-    return {name: by_dtype[torch.bfloat16] for name, by_dtype in totals.items()}
 
 
 def dilated_kernel_phase(spec, dev) -> Totals:
@@ -1502,6 +1572,19 @@ def conv_cl_phase(dev) -> tuple[Totals, int]:
 # validation case), 2 epochs of 4 iterations at the reference's 50
 # validation iterations per epoch
 TRAIN_CASES, TRAIN_SHAPE, EPOCHS, ITERS = 5, (64, 280, 240), 2, 4
+# eval steps an epoch in phases 14, 19 and 22's runs: cut from nnU-Net's 50 so
+# that the script, with phase 24, keeps to its time limit on a slower host
+TRAINER_EVAL_STEPS = 10
+
+
+def fewer_eval_steps():
+    """Every trainer at TRAINER_EVAL_STEPS eval steps an epoch, inside the
+    block."""
+    from unittest import mock
+
+    from nextou_tpu_torch.train.trainer import NexToUTrainer
+
+    return mock.patch.object(NexToUTrainer, "num_val_iterations_per_epoch", TRAINER_EVAL_STEPS)
 # the host-DA path's figures of this phase on one NVIDIA H100 80GB HBM3 at
 # 700.00 W, by chip_smoke.py of git commits 6fffebe and 22db5b0, printed
 # beside this run's device-DA figures
@@ -1530,9 +1613,10 @@ def trainer_phase(dev, tmp: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
-    trainer = run_training.main([data_dir, config, "0", "-tr", "nnUNetTrainer_NexToU",
-                                 "--epochs", str(EPOCHS), "--iters", str(ITERS),
-                                 "--device", str(dev)])
+    with fewer_eval_steps():
+        trainer = run_training.main([data_dir, config, "0", "-tr", "nnUNetTrainer_NexToU",
+                                     "--epochs", str(EPOCHS), "--iters", str(ITERS),
+                                     "--device", str(dev)])
     torch.cuda.synchronize()
     main_s = time.time() - t0
     k1, k3, k4, k5 = (c.launches for c in counters)
@@ -1542,7 +1626,7 @@ def trainer_phase(dev, tmp: str) -> dict:
     _, val = trainer.get_split()
     tiles = math.prod(len(s) for s in compute_sliding_window_steps(TRAIN_SHAPE, spec.patch_size))
     val_forwards = len(val.case_ids) * math.ceil(tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
-    steps, evals = EPOCHS * ITERS, EPOCHS * trainer.num_val_iterations_per_epoch
+    steps, evals = EPOCHS * ITERS, EPOCHS * TRAINER_EVAL_STEPS
     print(f"run_training.main: {EPOCHS} epochs x {ITERS} iterations, {evals} eval steps, "
           f"validation of {len(val.case_ids)} case(s) ({val_forwards} forwards): {main_s:.2f} s "
           f"incl. model build; remat {trainer.remat!r}; K3 {k3}, K4 {k4}, K1 {k1}, K5 {k5} "
@@ -2668,9 +2752,10 @@ def cascade_phase(dev, tmp: str) -> dict:
     for counter in counters:
         counter.launches = 0
     t0 = time.time()
-    lowres = run_training.main([folder, "3d_lowres", "0", "-tr", "nnUNetTrainer", "--epochs",
-                                str(CASCADE_EPOCHS), "--iters", str(CASCADE_ITERS),
-                                "--device", str(dev)])
+    with fewer_eval_steps():
+        lowres = run_training.main([folder, "3d_lowres", "0", "-tr", "nnUNetTrainer", "--epochs",
+                                    str(CASCADE_EPOCHS), "--iters", str(CASCADE_ITERS),
+                                    "--device", str(dev)])
     torch.cuda.synchronize()
     low_s = time.time() - t0
     if any(c.launches for c in counters) or not math.isfinite(lowres.log_history[0]["train_loss"]):
@@ -2698,9 +2783,10 @@ def cascade_phase(dev, tmp: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
-    trainer = run_training.main([folder, config, "0", "-tr", "nnUNetTrainer_NexToU",
-                                 "--epochs", str(CASCADE_EPOCHS), "--iters", str(CASCADE_ITERS),
-                                 "--device", str(dev)])
+    with fewer_eval_steps():
+        trainer = run_training.main([folder, config, "0", "-tr", "nnUNetTrainer_NexToU",
+                                     "--epochs", str(CASCADE_EPOCHS), "--iters", str(CASCADE_ITERS),
+                                     "--device", str(dev)])
     torch.cuda.synchronize()
     main_s = time.time() - t0
     k1, k3, k4, k5 = (c.launches for c in counters)
@@ -2710,7 +2796,7 @@ def cascade_phase(dev, tmp: str) -> dict:
                                                                    trainer.model_spec.patch_size))
     fwd_case = math.ceil(tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
     steps = CASCADE_EPOCHS * CASCADE_ITERS
-    evals = CASCADE_EPOCHS * trainer.num_val_iterations_per_epoch
+    evals = CASCADE_EPOCHS * TRAINER_EVAL_STEPS
     e = trainer.log_history[-1]
     print(f"run_training -tr nnUNetTrainer_NexToU {config}: in-channels "
           f"{trainer.model_spec.in_channels}, remat {trainer.remat!r}, {main_s:.2f} s incl. model "
@@ -2929,16 +3015,17 @@ def pipeline_phase(dev, tmp: str, trained: dict) -> dict:
     for counter in counters:
         counter.launches = 0
     t0 = time.time()
-    trainer = run_training.main([pre, DS_CONFIG, "0", "-tr", "nnUNetTrainer_NexToU",
-                                 "--epochs", "1", "--iters", str(DS_ITERS),
-                                 "--device", str(dev)])
+    with fewer_eval_steps():
+        trainer = run_training.main([pre, DS_CONFIG, "0", "-tr", "nnUNetTrainer_NexToU",
+                                     "--epochs", "1", "--iters", str(DS_ITERS),
+                                     "--device", str(dev)])
     torch.cuda.synchronize()
     seconds["run_training"] = time.time() - t0
     k1, k3, k4, k5 = (c.launches for c in counters)
     _, val = trainer.get_split()
     tiles = math.prod(len(s) for s in compute_sliding_window_steps(DS_SHAPE, spec.patch_size))
     fwd_case = math.ceil(tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
-    evals = trainer.num_val_iterations_per_epoch
+    evals = TRAINER_EVAL_STEPS
     e = trainer.log_history[-1]
     per_iter = e["train_time_s"] / DS_ITERS
     ref = trained["log"]
@@ -3040,14 +3127,10 @@ RUN_PLANS = {
 RUN_DATASET_JSON = {"labels": {"background": 0, "a": 1, "b": 2}, "numTraining": 6,
                     "channel_names": {"0": "img"}}
 RUN_STEPS, RUN_BTI_FROM = 20, 10
-# per step, card against CPU: loss, gradient norm (relative), update (L2
-# share of the CPU's), TI term (relative); small_train_phase's and the TI term's
-RUN_WIDTHS = {"loss": 1e-4, "grad_norm": 2e-2, "update": 0.1, "ti": 1e-3}
-# a step beyond a width passes only where the card's result lies within the
-# widths of the CPU's step from the same state with the parameters scaled by
-# one of these (a near tie that a one-ulp change flips the card's way), at no
-# more than RUN_WITNESS_STEPS of the 40 steps (predicted: 0-4)
-RUN_WITNESS_EPS = (1e-7, -1e-7, 1e-6, -1e-6)
+# per step, card against CPU, lockstep's WIDTHS (small_train_phase's and the
+# TI term's); a step beyond a width passes only where the card lies within
+# the widths of a one-ulp CPU step (lockstep's WITNESS_EPS), at no more than
+# RUN_WITNESS_STEPS of the 40 steps (predicted: 0-4)
 RUN_WITNESS_STEPS = 4
 # (3, 3, 3) convs of small_train_spec: 11 per step routed to K5 with
 # conv_kernel="1" and the region widened to each of them
@@ -3056,7 +3139,8 @@ RUN_K5_PER_STEP = 11
 # phase 14's cases (a validation case of 64 x 280 x 240: its HD95 costs half of
 # a 96 x 320 x 288 case's)
 RUN_TRAINER = "nnUNetTrainer_NexToU_BTI_Synapse"
-RUN_EPOCHS, RUN_ITERS, RUN_EVAL_STEPS = 3, 50, 10
+# 3 x 20: enough for the epochs' mean losses to fall, and the script's time limit holds phase 24 too
+RUN_EPOCHS, RUN_ITERS, RUN_EVAL_STEPS = 3, 20, 10
 
 
 def run_batches(tmp: str):
@@ -3083,111 +3167,36 @@ def run_small_phase(dev, tmp: str) -> dict:
     card (K2, K3, K4; and K5 at every (3, 3, 3) conv with conv_kernel="1")
     against the same steps on the CPU (plain versions), on the trainer's
     host-DA batches, 10 with Dice + CE and 10 with the BTI loss, once per
-    conv_kernel. The card is set to the CPU's state after each step
-    (small_train_phase's protocol). Per step: the loss, the gradient norm,
-    the update and, in the BTI steps, the TI term alone (each model's logits
-    through the deep-supervised TI loss, without its lambda of 1e-6) within
-    ``RUN_WIDTHS`` of the CPU's. Where a step lands on a near tie (a kNN
-    selection, or a max whose gradient is discontinuous there), the CPU
-    runs it again from its state with the parameters scaled by each of
-    ``RUN_WITNESS_EPS``: the card's result must then lie within the same
-    widths of one of those, at no more than ``RUN_WITNESS_STEPS`` of the 40
-    steps. Launches exact: K2 2, K3 and K4 12 per step, K5
-    ``RUN_K5_PER_STEP`` with "1" and none with "0"."""
+    conv_kernel, through :func:`lockstep`: at no more than
+    ``RUN_WITNESS_STEPS`` of the 40 steps beyond a width. Launches exact: K2
+    2, K3 and K4 12 per step, K5 ``RUN_K5_PER_STEP`` with "1" and none with
+    "0"."""
     from unittest import mock
 
     from nextou_tpu_torch.kernels.conv import conv3d_cuda, every_333_conv
     from nextou_tpu_torch.kernels.knn import knn_indices_cuda, knn_max_bwd_cuda, knn_max_idx_cuda
-    from nextou_tpu_torch.losses import deep_supervised_loss, deep_supervision_weights, ti_loss
-    from nextou_tpu_torch.models import NexToU
     from nextou_tpu_torch.nn import conv_blocks
-    from nextou_tpu_torch.train import create_train_state, make_optimizer, make_train_step, poly_lr
+    from nextou_tpu_torch.train import make_optimizer, poly_lr
 
     t_phase = time.time()
     spec = small_train_spec()
-    batches, (dc_ce, bti) = run_batches(tmp)
-    weights = deep_supervision_weights(len(spec.decoder))
+    batches, loss_specs = run_batches(tmp)
     # the poly rate per "epoch" of 10 steps over two epochs: 1e-2, then 5.4e-3
     opt = make_optimizer(poly_lr(1e-2, 2, 0.9, steps_per_epoch=RUN_BTI_FROM))
-    cpu = torch.device("cpu")
     counters = (knn_indices_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda)
-
-    def flat(model):
-        return torch.cat([p.detach().cpu().flatten() for p in model.parameters()])
-
-    def distances(a, b):
-        return {"loss": abs(a[0] - b[0]) / abs(b[0]),
-                "grad_norm": abs(a[1] - b[1]) / abs(b[1]),
-                "update": ((a[2] - b[2]).norm() / b[2].norm()).item(),
-                "ti": 0.0 if b[3] is None else abs(a[3] - b[3]) / abs(b[3])}
-
+    legs = [int(i >= RUN_BTI_FROM) for i in range(RUN_STEPS)]
     out = {"k2": 0, "k3": 0, "k4": 0, "k5": 0, "worst": {}}
     witnessed = 0
     for mode in ("0", "1"):
         region = (mock.patch.object(conv_blocks, "conv_kernel_wins", every_333_conv)
                   if mode == "1" else contextlib.nullcontext())
         with region:
-            states, steps, logits = {}, {}, {}
-            for kind, d in (("cuda", dev), ("cpu", cpu), ("witness", cpu)):
-                model = NexToU(spec, conv_kernel=mode, device=d)
-                states[kind] = create_train_state(model, opt, seed=23)
-                model.register_forward_hook(
-                    lambda m, a, o, kind=kind: logits.__setitem__(kind, [t.detach() for t in o]))
-                steps[kind] = [make_train_step(model, opt, s, weights) for s in (dc_ce, bti)]
             for counter in counters:
                 counter.launches = 0
-            worst = dict.fromkeys(RUN_WIDTHS, 0.0)
-
-            def run_step(kind, leg, batch, start):
-                states[kind], m = steps[kind][leg](states[kind], batch)
-                ti = None
-                if leg:
-                    seg = torch.as_tensor(batch["seg"]).long().to(logits[kind][0].device)
-                    ti = deep_supervised_loss(
-                        logits[kind], seg, lambda o, t: ti_loss(o, t, bti.ti), weights).item()
-                return m["loss"].item(), m["grad_norm"].item(), flat(states[kind].model) - start, ti
-
-            for i, batch in enumerate(batches):
-                leg = int(i >= RUN_BTI_FROM)
-                before = {k: {n: t.clone() for n, t in v.items()} if isinstance(v, dict)
-                          else v.clone() if torch.is_tensor(v) else v
-                          for k, v in states["cpu"].state_dict().items()}
-                start = flat(states["cpu"].model)
-                assert torch.equal(start, flat(states["cuda"].model))
-                got = {kind: run_step(kind, leg, batch, start) for kind in ("cuda", "cpu")}
-                off = distances(got["cuda"], got["cpu"])
-                note = ""
-                if any(off[k] > w for k, w in RUN_WIDTHS.items()):
-                    witnessed += 1
-                    seen = []
-                    for eps in RUN_WITNESS_EPS:
-                        states["witness"].load_state_dict(before)
-                        with torch.no_grad():
-                            for p in states["witness"].model.parameters():
-                                p.mul_(1 + eps)
-                        result = run_step("witness", leg, batch, start * (1 + eps))
-                        seen.append((eps, distances(got["cuda"], result),
-                                     distances(result, got["cpu"])))
-                    eps, match, moved = min(seen, key=lambda e: max(
-                        e[1][k] / w for k, w in RUN_WIDTHS.items()))
-                    note = (f" (beyond a width: the CPU at 1 {eps:+.0e} moves by " + ", ".join(
-                        f"{k} {moved[k]:.2e}" for k in RUN_WIDTHS) + "; the card from it "
-                        + ", ".join(f"{k} {match[k]:.2e}" for k in RUN_WIDTHS) + ")")
-                    if any(match[k] > w for k, w in RUN_WIDTHS.items()):
-                        raise AssertionError(
-                            f"phase 23 (a) conv_kernel={mode!r} step {i}: off by {off}, and "
-                            f"beyond the widths of each one-ulp CPU step: {seen}")
-                    if witnessed > RUN_WITNESS_STEPS:
-                        raise AssertionError(
-                            f"phase 23 (a): {witnessed} steps beyond a width (at most "
-                            f"{RUN_WITNESS_STEPS} of {2 * RUN_STEPS})")
-                (gl, gn, _, gt), (wl, wn, _, wt) = got["cuda"], got["cpu"]
-                print(f"(a) conv_kernel={mode!r} step {i} ({'BTI' if leg else 'Dice + CE'}): loss "
-                      f"{gl:.6f} vs {wl:.6f}, grad_norm {gn:.4f} vs {wn:.4f}, update off "
-                      f"{off['update']:.2e}" + (f", TI term {gt:.4f} vs {wt:.4f}" if leg else "")
-                      + note)
-                worst = {k: max(worst[k], off[k]) for k in worst}
-                states["cuda"].load_state_dict(states["cpu"].state_dict())
+            worst, n, _ = lockstep(dev, spec, batches, legs, loss_specs, opt, 23,
+                                f"(a) conv_kernel={mode!r}", RUN_WITNESS_STEPS - witnessed,
+                                conv_kernel=mode)
+            witnessed += n
             k2, k3, k4, k5 = (c.launches for c in counters)
             print(f"(a) conv_kernel={mode!r}: worst over {RUN_STEPS} steps, card vs CPU: "
                   + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
@@ -3209,7 +3218,7 @@ def run_small_phase(dev, tmp: str) -> dict:
 def run_flagship_phase(dev, data_dir: str) -> dict:
     """Phase 23 (b): the flagship at full width, free running, through
     ``run_training.main`` with the BTI Synapse trainer (14 classes, the
-    13-organ tree) on phase 14's cases: 3 epochs x 50 iterations,
+    13-organ tree) on phase 14's cases: 3 epochs x 20 iterations,
     device DA (auto), 10 eval steps per epoch, then the final validation.
     Every BTI term of the run finite (each call of the compound loss's TI
     term recorded), every epoch's losses finite, the epoch-mean train loss
@@ -3290,6 +3299,419 @@ def run_flagship_phase(dev, data_dir: str) -> dict:
             "s_per_iter": [e["train_time_s"] / RUN_ITERS for e in log]}
 
 
+# --- the 2D family at full width (phase 24) ---------------------------------------------
+
+# A: ravir_2d_spec (512 x 448, 7 stages, 32 ... 512, 3 classes: upstream's 2d plans
+# for RAVIR) at the 2d plans' batch of 12, bf16 compute, seed-0 weights, and the
+# nnUNetTrainer_NexToU_BTI_RAVIR loss; one 768 x 768 image served with mirror axes
+# (0, 1): 4 variants, 2 per forward
+RAVIR_TRAINER, RAVIR_BATCH, RAVIR_IMAGE, RAVIR_STEPS = "nnUNetTrainer_NexToU_BTI_RAVIR", 12, (768, 768), 3
+# (b): ravir_2d_spec's seven stages, kernel sizes and strides at narrow widths
+# (synthetic.NARROW_RAVIR_2D, tests/test_torch_2d.py's network, 4 x 4 windows at
+# the bottleneck), f32: served on a 320 x 384 image (2 x 2 tiles); then 4 train
+# steps of batch 2 with A's loss (lockstep.narrow_ravir_run), card against CPU,
+# at most NARROW_2D_WITNESS of them beyond a width (phase 23 (a)'s widths), at a
+# NARROW_2D_TRAIN_PATCH patch: about 1,900 kNN rows a step, as phase 8's small
+# network. The CPU's own step moves beyond a width under a one-ulp change of
+# its state (1 +- 1e-7) at 2 of 16 steps at 128 x 128, 10 of 16 at 256 x 256
+# (python -m nextou_tpu_torch.tools.lockstep --steps 16): at 256 x 256, 1 in 4
+# would not bound the card. The steps start where 20 steps of Dice + CE on
+# the CPU leave the network: from a random start the TI term (lambda 1e-4 x
+# about 8,000, most of the loss) counts the critical pixels of a prediction
+# that is noise, and each flipped argmax moves it; trained briefly, the
+# prediction is no longer noise.
+NARROW_2D_TRAIN_PATCH, NARROW_2D_WITNESS = (128, 128), 1
+# B: a RAVIR-like raw dataset (23 training images and 1 test image of 1 x 768 x 768
+# at (999, 1, 1), as nnU-Net lays out a 2D dataset) through plan_and_preprocess
+# (-c 2d), run_training of the planned 2d_nextou (2 x 10, cut from 1000 x 250; 10
+# eval steps an epoch; device DA auto) and predict --raw
+RAVIR_CASES, RAVIR_EPOCHS, RAVIR_ITERS, RAVIR_EVAL_STEPS = 23, 2, 10, 10
+RAVIR_CONFIG = "2d_nextou"
+# what the planner gives that fingerprint: 2d_nextou's patch, the 2d batch, stages,
+# and the width of every grapher
+RAVIR_PLAN = ([640, 640], 3, 8, 512)
+
+
+def crossings(seg) -> int:
+    """Artery pixels with a vein among their 8 neighbours: where the exclusion
+    [[1, 2]] has work."""
+    vein = np.pad(seg == 2, 1)
+    near = np.zeros(seg.shape, bool)
+    for dy in (0, 1, 2):
+        for dx in (0, 1, 2):
+            near |= vein[dy:dy + seg.shape[0], dx:dx + seg.shape[1]]
+    return int(((seg == 1) & near).sum())
+
+
+def ravir_trainer(dev):
+    """The RAVIR BTI trainer on plans whose 2d configuration is ravir_2d_spec's
+    (upstream's RAVIR 2d plans): its network spec (held equal to the
+    preset's, field for field) and its loss spec."""
+    from nextou_tpu_torch.models.presets import ravir_2d_spec
+    from nextou_tpu_torch.train import get_trainer_class
+
+    trainer = get_trainer_class(RAVIR_TRAINER)(
+        plans_for(ravir_2d_spec(), "2d", RAVIR_BATCH), "2d", 0, RAVIR_DATASET_JSON, device=dev)
+    spec, loss = trainer.build_network_spec(), trainer._loss_spec()
+    if dataclasses.asdict(spec) != dataclasses.asdict(ravir_2d_spec()):
+        raise AssertionError("the RAVIR trainer's spec is not ravir_2d_spec()")
+    ti = loss.ti
+    print(f"{RAVIR_TRAINER} on the RAVIR 2d plans: spec = ravir_2d_spec(); loss Dice "
+          f"{loss.weight_dice} + CE {loss.weight_ce} + TI {loss.weight_ti:g} (dim {ti.dim}, "
+          f"connectivity {ti.connectivity}, interactions {ti.interactions})")
+    if (loss.weight_ti, ti.dim, ti.connectivity, ti.interactions) != (
+            1e-4, 2, 8, ((False, (1,), (2,)),)):
+        raise AssertionError("the RAVIR BTI loss is not the exclusion [[1, 2]], lambda 1e-4, "
+                             "8-connectivity")
+    return spec, loss
+
+
+def ravir_narrow_phase(dev, loss) -> dict:
+    """Phase 24 (b): the narrow 2D network with the RAVIR schedule, f32: served
+    on the card against the CPU (phase 6's rule), then the train steps of
+    ``lockstep.narrow_ravir_run`` with the RAVIR BTI loss through
+    :func:`lockstep`, each beside the CPU's own step at 1 +- 1e-7 of its
+    state. Launches exact: K1 14 per served forward, K3 and K4 14 per step."""
+    from nextou_tpu_torch.infer import make_device_sliding_predictor
+    from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
+    from nextou_tpu_torch.kernels.knn import (
+        knn_indices_cuda, knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda,
+    )
+    from nextou_tpu_torch.models import NexToU
+    from nextou_tpu_torch.models.spec import build_model_spec
+    from nextou_tpu_torch.tools.lockstep import NARROW_LR, NARROW_SEED
+    from nextou_tpu_torch.tools.synthetic import NARROW_RAVIR_2D
+    from nextou_tpu_torch.train import make_optimizer
+    from nextou_tpu_torch.utils import init_weights
+
+    t_phase = time.time()
+    data, _, train_spec, batches, warmup = narrow_ravir_run(NARROW_2D_TRAIN_PATCH, loss)
+    image = data.shape[:2]
+    spec = build_model_spec(**NARROW_RAVIR_2D, deep_supervision=False)
+    tiles = math.prod(len(s) for s in compute_sliding_window_steps(image, spec.patch_size))
+    forwards = math.ceil(tiles / TILE_BATCH) * (4 // MIRRORS_PER_FORWARD)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        # the He kernels halved, as in phase 6
+        model = init_weights(NexToU(spec, device=d), seed=3).eval()
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.dim() >= 2:
+                    p.mul_(0.5)
+        knn_max_cuda.launches = 0
+        out.append(make_device_sliding_predictor(
+            model, (0, 1), spec.patch_size, spec.num_classes, device=d,
+            tile_batch=TILE_BATCH, transfer_dtype=torch.float32,
+        )(data).cpu().numpy())
+        if d == dev:
+            k1 = knn_max_cuda.launches
+    got, want = out
+    off = np.abs(got - want) > 2e-3 + 1e-3 * np.abs(want)
+    agree = float(np.mean(np.argmax(got, -1) == np.argmax(want, -1)))
+    print(f"(b) narrow 2D network f32, {image} image ({tiles} tiles, {forwards} "
+          f"forwards, mirror axes (0, 1)), card vs CPU: max|diff| {np.abs(got - want).max():.3g}, "
+          f"{off.mean():.2e} of values outside atol 2e-3/rtol 1e-3, seg agreement {agree:.6f}; "
+          f"K1 {k1} launches")
+    expect_launches("phase 24 (b) serving, K1", (k1,), (14 * forwards,))
+    if off.mean() > 1e-3 or agree < 0.999:
+        raise AssertionError("phase 24 (b): the narrow 2D network on the card disagrees with the CPU")
+
+    crossed = [crossings(s) for b in batches for s in b["seg"]]
+    print(f"(b) train batches: {len(batches)} x 2 x {train_spec.patch_size}, artery pixels next "
+          f"to a vein {crossed}; from {len(warmup)} Dice + CE steps on the CPU")
+    if not all(crossed):
+        raise AssertionError("phase 24 (b): a label map without an artery next to a vein")
+    for counter in (knn_max_idx_cuda, knn_max_bwd_cuda, knn_indices_cuda):
+        counter.launches = 0
+    worst, witnessed, probed = lockstep(
+        dev, train_spec, batches, [0] * len(batches), [loss], make_optimizer(NARROW_LR),
+        NARROW_SEED, "(b) RAVIR BTI", NARROW_2D_WITNESS, warmup=warmup, probe=(1e-7, -1e-7))
+    k3, k4, k2 = (c.launches for c in (knn_max_idx_cuda, knn_max_bwd_cuda, knn_indices_cuda))
+    moved = sum(any(d[k] > w for d in step.values() for k, w in RUN_WIDTHS.items())
+                for step in probed)
+    print(f"(b) worst over {len(batches)} steps, card vs CPU: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f"; {witnessed} beyond a width (at most {NARROW_2D_WITNESS}); the CPU's own step at "
+          f"1 +- 1e-7 beyond a width at {moved}; launches K3 {k3} K4 {k4} K2 {k2}")
+    expect_launches("phase 24 (b) train steps (K3, K4, K2)", (k3, k4, k2),
+                    (14 * len(batches), 14 * len(batches), 0))
+    print(f"phase 24 (b): {time.time() - t_phase:.1f} s")
+    return {"k1": k1, "k3": k3, "k4": k4}
+
+
+def ravir_full_phase(dev, spec, loss) -> dict:
+    """Phase 24 (c): ravir_2d_spec at full width, bf16, seed-0 weights: a
+    batch-12 forward (K1 14 launches), RAVIR_STEPS train steps at batch 12
+    with deep supervision and the RAVIR BTI loss (K3 and K4 14 per step,
+    every loss finite), and one 768 x 768 image served through
+    ``predict.build_predictor`` (mirror axes (0, 1), tile batch 2): K1 14 per
+    forward, probabilities summing to 1, labels in range."""
+    from nextou_tpu_torch import predict
+    from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda
+    from nextou_tpu_torch.kernels.knn import (
+        knn_indices_cuda, knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda,
+    )
+    from nextou_tpu_torch.losses import deep_supervision_weights
+    from nextou_tpu_torch.models import NexToU
+    from nextou_tpu_torch.train import create_train_state, make_optimizer, make_train_step, poly_lr
+    from nextou_tpu_torch.utils import init_weights
+
+    t_phase = time.time()
+    counters = (knn_max_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda, knn_indices_cuda)
+    infer_spec = dataclasses.replace(spec, deep_supervision=False)
+    model = init_weights(NexToU(infer_spec, dtype=torch.bfloat16, device=dev), seed=0).eval()
+    rng = np.random.default_rng(25)
+    x = torch.from_numpy(vessel_batch(rng, RAVIR_BATCH, spec.patch_size)["data"]).to(dev)
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        logits = model(x)
+        torch.cuda.synchronize()
+        k1 = knn_max_cuda.launches
+        fwd_ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
+    peak_fwd = torch.cuda.max_memory_allocated(dev)
+    print(f"(c) ravir_2d_spec forward, batch {RAVIR_BATCH} x {spec.patch_size}, bf16: "
+          f"{fwd_ms:.2f} ms ({RAVIR_BATCH / fwd_ms * 1e3:.1f} patches/s), peak device memory "
+          f"{peak_fwd / 2**30:.2f} GiB, K1 {k1} launches, logits {tuple(logits.shape)} finite: "
+          f"{bool(torch.isfinite(logits.float()).all())}")
+    expect_launches("phase 24 (c) forward, K1", (k1,), (14,))
+    if not torch.isfinite(logits.float()).all():
+        raise AssertionError("phase 24 (c): the batch-12 forward is not finite")
+    del logits, x
+
+    train_model = NexToU(spec, dtype=torch.bfloat16, device=dev)
+    opt = make_optimizer(poly_lr(1e-2, 1000, 0.9, steps_per_epoch=250))
+    state = create_train_state(train_model, opt, seed=0)
+    step = make_train_step(train_model, opt, loss, deep_supervision_weights(len(spec.decoder)))
+    batch = vessel_batch(rng, RAVIR_BATCH, spec.patch_size)
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    seconds = []
+    for i in range(RAVIR_STEPS):
+        t0 = time.time()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+        l, n = metrics["loss"].item(), metrics["grad_norm"].item()
+        print(f"(c) train step {i}: loss {l:.4f} grad_norm {n:.4f} {seconds[-1]:.3f} s")
+        if not (math.isfinite(l) and math.isfinite(n)):
+            raise AssertionError(f"phase 24 (c) train step {i}: loss {l}, grad_norm {n}")
+    peak_train = torch.cuda.max_memory_allocated(dev)
+    k3, k4 = knn_max_idx_cuda.launches, knn_max_bwd_cuda.launches
+    print(f"(c) train steps at batch {RAVIR_BATCH}, deep supervision, {RAVIR_TRAINER}'s loss: "
+          f"first {seconds[0]:.3f} s, then {', '.join(f'{s:.3f}' for s in seconds[1:])} s "
+          f"({RAVIR_BATCH / min(seconds[1:]):.1f} patches/s); peak device memory "
+          f"{peak_train / 2**30:.2f} GiB; K3 {k3}, K4 {k4}, K1 {knn_max_cuda.launches} launches")
+    expect_launches("phase 24 (c) train steps (K3, K4, K1, K5, K2)",
+                    (k3, k4, knn_max_cuda.launches, conv3d_cuda.launches, knn_indices_cuda.launches),
+                    (14 * RAVIR_STEPS, 14 * RAVIR_STEPS, 0, 0, 0))
+    del train_model, state, step, batch
+    torch.cuda.empty_cache()
+
+    seg_true = vessel_map(rng, RAVIR_IMAGE)
+    image = ((retina_image(rng, seg_true) - 100) / 40)[..., None]
+    tiles = math.prod(len(s) for s in compute_sliding_window_steps(RAVIR_IMAGE, spec.patch_size))
+    forwards = math.ceil(tiles / TILE_BATCH) * (4 // MIRRORS_PER_FORWARD)
+    seg_pred = predict.build_predictor(model, (0, 1), tile_batch=TILE_BATCH, output="seg")
+    probs = predict.build_predictor(model, (0, 1), tile_batch=TILE_BATCH)(image)
+    knn_max_cuda.launches = 0
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        seg = seg_pred(image)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    k1_serve = knn_max_cuda.launches
+    sums = probs.sum(-1)
+    print(f"(c) one {RAVIR_IMAGE} image through predict.build_predictor (mirror axes (0, 1), "
+          f"tile batch {TILE_BATCH}, {seg_pred.path}): {tiles} tiles, {forwards} forwards, "
+          f"{', '.join(f'{t:.3f}' for t in times)} s per image; K1 {k1_serve} launches in the two "
+          f"calls; seg {seg.shape} labels {np.unique(seg).tolist()}; probabilities sum in "
+          f"[{sums.min():.6f}, {sums.max():.6f}], argmax = seg on "
+          f"{float(np.mean(np.argmax(probs, -1) == seg)):.6f}")
+    expect_launches("phase 24 (c) serving (K1, K5, K2)",
+                    (k1_serve, conv3d_cuda.launches, knn_indices_cuda.launches),
+                    (2 * 14 * forwards, 0, 0))
+    if seg.shape != RAVIR_IMAGE or seg.max() >= spec.num_classes or np.abs(sums - 1).max() > 1e-3:
+        raise AssertionError("phase 24 (c): the served image")
+    print(f"phase 24 (c): {time.time() - t_phase:.1f} s")
+    return {"k1": k1 + k1_serve, "k3": k3, "k4": k4, "fwd_ms": fwd_ms,
+            "s_per_step": min(seconds[1:]), "s_per_image": min(times),
+            "peak_train": peak_train}
+
+
+def write_raw_retina(folder: str, seed: int) -> None:
+    """nnU-Net's raw layout of a 2D dataset: RAVIR_CASES training images and one
+    test image, each 1 x 768 x 768 at spacing (999, 1, 1), f32, labels 0
+    background, 1 artery, 2 vein (:func:`vessel_map`), written in parallel by
+    the port's ``write_nifti``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nextou_tpu_torch.data.io import write_nifti
+
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for sub in ("imagesTr", "labelsTr", "imagesTs"):
+        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    for i in range(RAVIR_CASES + 1):
+        seg = vessel_map(rng, RAVIR_IMAGE)[None]
+        cid = f"ravir_{i:03d}"
+        images = "imagesTr" if i < RAVIR_CASES else "imagesTs"
+        jobs.append((os.path.join(folder, images, f"{cid}_0000.nii.gz"), retina_image(rng, seg)))
+        if i < RAVIR_CASES:
+            jobs.append((os.path.join(folder, "labelsTr", f"{cid}.nii.gz"), seg))
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        for f in [ex.submit(write_nifti, path, arr, spacing=(999.0, 1.0, 1.0))
+                  for path, arr in jobs]:
+            f.result()
+    with open(os.path.join(folder, "dataset.json"), "w") as f:
+        json.dump({"name": "Dataset014_RAVIRlike", **RAVIR_DATASET_JSON,
+                   "numTraining": RAVIR_CASES}, f)
+
+
+def ravir_pipeline_phase(dev, tmp: str) -> dict:
+    """Phase 24 (d): part B, a RAVIR-like raw 2D dataset to a served model with
+    the port's CLIs: plan_and_preprocess (integrity, fingerprint, plans: 2d_nextou
+    640 x 640, 8 stages, batch 3, every grapher at 512 channels; preprocessing of
+    2d), run_training of 2d_nextou with the RAVIR BTI trainer (K3 and K4 14 per
+    step, K1 14 per eval step and validation forward, checkpoint and
+    validation/summary.json written), predict --raw of the test image (the
+    NIfTI at the input's shape and spacing, labels in {0, 1, 2})."""
+    from unittest import mock
+
+    from nextou_tpu_torch import plan_and_preprocess, predict, run_training
+    from nextou_tpu_torch.data.io import read_image
+    from nextou_tpu_torch.infer import raw as raw_mod
+    from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
+    from nextou_tpu_torch.kernels.conv import conv3d_cuda
+    from nextou_tpu_torch.kernels.knn import (
+        knn_indices_cuda, knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda,
+    )
+    from nextou_tpu_torch.plans import load_dataset_json
+    from nextou_tpu_torch.train import get_trainer_class
+    from nextou_tpu_torch.train.trainer import NexToUTrainer
+
+    t_phase, seconds = time.time(), {}
+    raw, pre = os.path.join(tmp, "Dataset014_RAVIRlike"), os.path.join(tmp, "preprocessed")
+    t0 = time.time()
+    write_raw_retina(raw, seed=14)
+    seconds["write raw"] = time.time() - t0
+    print(f"(d) {RAVIR_CASES} labelled images and 1 test image 1 x {RAVIR_IMAGE} at (999, 1, 1), "
+          f"written as .nii.gz in {seconds['write raw']:.2f} s")
+    with timing(plan_and_preprocess, ("verify_dataset_integrity", "extract_fingerprint",
+                                      "plan_experiment", "preprocess_dataset"), seconds):
+        t0 = time.time()
+        out = run_main(plan_and_preprocess.main, [raw, "-o", pre, "--verify_dataset_integrity",
+                                                  "-c", "2d"])
+        seconds["plan_and_preprocess"] = time.time() - t0
+    if "dataset integrity OK" not in out:
+        raise AssertionError("phase 24 (d): the integrity check did not pass")
+    plans = load_json(os.path.join(pre, "nnUNetPlans.json"))
+    cfg2d, overlay = plans["configurations"]["2d"], plans["configurations"][RAVIR_CONFIG]
+    trainer_cls = get_trainer_class(RAVIR_TRAINER)
+    spec = trainer_cls(plans, RAVIR_CONFIG, 0, load_dataset_json(pre), device=dev).build_network_spec()
+    gnn = [(st.img_shape, st.features, [b.k for b in st.gnn],
+            [b.window_size for b in st.gnn if b.kind == "swin"])
+           for st in (*spec.encoder, *spec.decoder) if st.gnn]
+    print(f"(d) plans: 2d patch {cfg2d['patch_size']} batch {cfg2d['batch_size']}, "
+          f"{RAVIR_CONFIG} {overlay}; the trainer's spec: {len(spec.encoder)} stages, graphers "
+          f"(map, C, k, window) {gnn}")
+    if (overlay.get("patch_size"), cfg2d["batch_size"], len(spec.encoder)) != RAVIR_PLAN[:3] \
+            or any(c != RAVIR_PLAN[3] for _, c, _, _ in gnn):
+        raise AssertionError("phase 24 (d): the planner did not plan the RAVIR 2d_nextou")
+    cases = sorted(f for f in os.listdir(os.path.join(pre, cfg2d["data_identifier"]))
+                   if f.endswith(".npz"))
+    print(f"(d) plan_and_preprocess.main: {seconds['plan_and_preprocess']:.2f} s: integrity "
+          f"{seconds['verify_dataset_integrity']:.2f}, fingerprint "
+          f"{seconds['extract_fingerprint']:.2f}, planning {seconds['plan_experiment']:.3f}, "
+          f"preprocessing {seconds['preprocess_dataset']:.2f} s ({len(cases)} cases)")
+    if len(cases) != RAVIR_CASES:
+        raise AssertionError(f"phase 24 (d): {len(cases)} preprocessed cases")
+    # K1 at the planned network's served shapes, K2-K4 at its train step's
+    t0 = time.time()
+    kernels = {"knn_max": kernel_phase(spec, dev, name=RAVIR_CONFIG)}
+    kernels.update(train_kernel_phase(spec, dev, batch=cfg2d["batch_size"], name=RAVIR_CONFIG))
+    seconds["kernels held"] = time.time() - t0
+    torch.cuda.empty_cache()
+
+    counters = (knn_max_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda, knn_indices_cuda)
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    with mock.patch.object(trainer_cls, "num_val_iterations_per_epoch", RAVIR_EVAL_STEPS), \
+            timing(NexToUTrainer, ("initialize", "perform_actual_validation"), seconds):
+        trainer = run_training.main([pre, RAVIR_CONFIG, "0", "-tr", RAVIR_TRAINER,
+                                     "--epochs", str(RAVIR_EPOCHS), "--iters", str(RAVIR_ITERS),
+                                     "--device", str(dev)])
+    torch.cuda.synchronize()
+    seconds["run_training"] = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    k1, k3, k4, k5, k2 = (c.launches for c in counters)
+    _, val = trainer.get_split()
+    tiles = math.prod(len(s) for s in compute_sliding_window_steps(RAVIR_IMAGE, spec.patch_size))
+    fwd_case = math.ceil(tiles / TILE_BATCH) * (4 // MIRRORS_PER_FORWARD)
+    for e in trainer.log_history:
+        print(f"(d) epoch {e['epoch']}: train_loss {e['train_loss']:.4f} val_loss "
+              f"{e['val_loss']:.4f} ema {e['ema_pseudo_dice']:.4f}; "
+              f"{e['train_time_s'] / RAVIR_ITERS:.3f} s per iteration, waiting for the loader "
+              f"{e['loader_wait_s'] / e['train_time_s']:.3f} of it")
+    run = trainer.output_folder
+    summary = load_json(os.path.join(run, "validation", "summary.json"))
+    print(f"(d) run_training.main {RAVIR_CONFIG} -tr {RAVIR_TRAINER}, {RAVIR_EPOCHS} x "
+          f"{RAVIR_ITERS}, batch {trainer.batch_size}, device DA {trainer.device_da}, "
+          f"{RAVIR_EVAL_STEPS} eval steps per epoch, validation of {len(val.case_ids)} cases "
+          f"({fwd_case} forwards each): {seconds['run_training']:.2f} s (initialize "
+          f"{seconds['initialize']:.2f}, validation {seconds['perform_actual_validation']:.2f}); "
+          f"validation Dice per label "
+          f"{ {k: round(v['Dice'], 4) for k, v in summary.get('mean', {}).items()} }, foreground "
+          f"mean {summary['foreground_mean']['Dice']:.4f}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; K3 {k3}, K4 {k4}, K1 {k1}, K5 {k5}, K2 {k2} launches")
+    steps = RAVIR_EPOCHS * RAVIR_ITERS
+    expect_launches("phase 24 (d) run_training (K3, K4, K1, K5, K2)", (k3, k4, k1, k5, k2),
+                    (14 * steps, 14 * steps,
+                     14 * (RAVIR_EPOCHS * RAVIR_EVAL_STEPS + len(val.case_ids) * fwd_case), 0, 0))
+    losses = [v for e in trainer.log_history for v in (e["train_loss"], e["val_loss"])]
+    if len(trainer.log_history) != RAVIR_EPOCHS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"phase 24 (d): losses {losses}")
+    if not os.path.exists(os.path.join(run, "checkpoint_final.pth")):
+        raise AssertionError("phase 24 (d): the trainer wrote no checkpoint_final.pth")
+
+    for counter in counters:
+        counter.launches = 0
+    out_dir = os.path.join(tmp, "ravir_served")
+    t0 = time.time()
+    with timing(raw_mod, ("read_image", "resample_data_or_seg_to_shape", "write_nifti"), seconds,
+                prefix="predict "):
+        predict.main([run, os.path.join(raw, "imagesTs"), RAVIR_CONFIG, "-tr", RAVIR_TRAINER,
+                      "--raw", "-o", out_dir, "--tile-batch", str(TILE_BATCH),
+                      "--device", str(dev)])
+    torch.cuda.synchronize()
+    seconds["predict"] = time.time() - t0
+    seg, sp = read_image(os.path.join(out_dir, f"ravir_{RAVIR_CASES:03d}.nii.gz"))
+    k1_serve = knn_max_cuda.launches
+    print(f"(d) predict.main --raw of the test image: {seconds['predict']:.2f} s incl. model "
+          f"build (reading {seconds['predict read_image']:.2f}, writing "
+          f"{seconds['predict write_nifti']:.2f} s), K1 {k1_serve} launches ({fwd_case} "
+          f"forwards); NIfTI {seg.shape} {seg.dtype} at {tuple(float(s) for s in sp)}, labels "
+          f"{np.unique(seg).tolist()}")
+    expect_launches("phase 24 (d) predict --raw (K1, K3, K5, K2)",
+                    (k1_serve, knn_max_idx_cuda.launches, conv3d_cuda.launches,
+                     knn_indices_cuda.launches), (14 * fwd_case, 0, 0, 0))
+    if seg.shape != (1, *RAVIR_IMAGE) or tuple(sp) != (999.0, 1.0, 1.0) or not set(
+            np.unique(seg).tolist()) <= {0, 1, 2}:
+        raise AssertionError("phase 24 (d): the served NIfTI")
+    print(f"phase 24 (d): {time.time() - t_phase:.1f} s; stages (s): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    return {"k1": k1 + k1_serve, "k3": k3, "k4": k4, "seconds": seconds,
+            "dice": summary["foreground_mean"]["Dice"], "kernels": kernels}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -3316,6 +3738,7 @@ def main() -> int:
 
     records = {"knn_max": kernel_phase(flagship_3d_spec(), dev)}
     records.update(train_kernel_phase(flagship_3d_spec(), dev))
+    k4_any_shape_phase(dev)
     records["knn_indices"] = dilated_kernel_phase(small_train_spec(), dev)
     records["conv3d"] = conv_kernel_phase(flagship_3d_spec(), dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3374,6 +3797,26 @@ def main() -> int:
         print(f"phase 23: {time.time() - t_phase:.1f} s")
     trainer_tmp.cleanup()
     records["conv3d"].merge(nets["conv3d"])
+    torch.cuda.empty_cache()
+
+    # phase 24: the 2D family at full width
+    t_phase = time.time()
+    ravir_spec, ravir_loss = ravir_trainer(dev)
+    ravir_records = {"knn_max": kernel_phase(ravir_spec, dev, name="ravir_2d")}
+    ravir_records.update(train_kernel_phase(ravir_spec, dev, batch=RAVIR_BATCH, name="ravir_2d"))
+    print(f"phase 24 (a): {time.time() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    narrow = ravir_narrow_phase(dev, ravir_loss)
+    torch.cuda.empty_cache()
+    ravir_full = ravir_full_phase(dev, ravir_spec, ravir_loss)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ravir_run = ravir_pipeline_phase(dev, tmp)
+    print(f"phase 24: {time.time() - t_phase:.1f} s")
+    ravir_k1 = narrow["k1"] + ravir_full["k1"] + ravir_run["k1"]
+    ravir_k3 = narrow["k3"] + ravir_full["k3"] + ravir_run["k3"]
+    ravir_k4 = narrow["k4"] + ravir_full["k4"] + ravir_run["k4"]
+    print(f"phase 24 launches: K1 {ravir_k1}, K3 {ravir_k3}, K4 {ravir_k4}")
 
     # each kernel's numbers belong to the path that runs it ("path"): K1 to
     # predict.main on the flagship (phases 5, 15, 16 b, 17, 22) and on the cascade
@@ -3387,29 +3830,36 @@ def main() -> int:
         "knn_max": ("knn_max.cu", "nextou_tpu/kernels/knn.py:40",
                     sl["launches"] + raw["launches"] + host["launches"] + ens["launches"]
                     + trained["k1"] + nets["k1"] + cascade["k1"] + all_devices_k1
-                    + pipeline["k1"] + run_flagship["k1"],
+                    + pipeline["k1"] + run_flagship["k1"] + ravir_k1,
                     "flagship predict: preprocessed, raw, over the budget, fold ensembles, "
                     "--all-devices and without; the trainer's eval steps and validation; the "
                     "plain Grapher; the cascade stage's eval steps, validation and predict -prev "
                     "(preprocessed, raw); the planned flagship's eval steps and validation, "
                     "predict --raw from its run and from the imported checkpoint; the "
-                    "flagship BTI run's eval steps and validation"),
+                    "flagship BTI run's eval steps and validation; 2D: the narrow network "
+                    "served, ravir_2d_spec's batch-12 forward and a 768 x 768 image served, "
+                    "the planned 2d_nextou's eval steps, validation and predict --raw. "
+                    "max_abs_err, ms, plain_ms, bound_ms: a batch-4 forward of the flagship; "
+                    "by_path: the same for each network apart (the flagship, ravir_2d_spec, "
+                    "the planned 2d_nextou)"),
         "knn_indices": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:184",
                         k2_launches + run_small["k2"],
                         "small dilated network, train steps; its 40 steps of a run (Dice + CE "
                         "and BTI, conv_kernel '0' and '1') against the CPU"),
         "knn_max_idx": ("knn_max_idx.cu", "nextou_tpu/kernels/knn.py:278",
                         tr["k3"] + trained["k3"] + cascade["k3"] + dp["k3"] + pipeline["k3"]
-                        + run_small["k3"] + run_flagship["k3"],
+                        + run_small["k3"] + run_flagship["k3"] + ravir_k3,
                         "flagship train steps; the trainer's; the cascade stage's; two gloo "
                         "ranks' and their one process's; the planned flagship's; the small "
-                        "network's run against the CPU; the flagship BTI run's 150 steps"),
+                        "network's run against the CPU; the flagship BTI run's steps; 2D: the "
+                        "narrow network's steps against the CPU, ravir_2d_spec's batch-12 steps, "
+                        "the planned 2d_nextou's run. max_abs_err, ms, plain_ms, bound_ms: a "
+                        "batch-2 flagship step; by_path: the same for each network apart (the "
+                        "flagship; ravir_2d_spec at batch 12; the planned 2d_nextou at batch 3)"),
         "knn_max_bwd": ("knn_max_bwd.cu", "nextou_tpu/kernels/knn.py:384",
                         tr["k4"] + trained["k4"] + cascade["k4"] + dp["k4"] + pipeline["k4"]
-                        + run_small["k4"] + run_flagship["k4"],
-                        "flagship train steps; the trainer's; the cascade stage's; two gloo "
-                        "ranks' and their one process's; the planned flagship's; the small "
-                        "network's run against the CPU; the flagship BTI run's 150 steps"),
+                        + run_small["k4"] + run_flagship["k4"] + ravir_k4,
+                        "as knn_max_idx"),
         "conv3d": ("conv3d.cu", "nextou_tpu/kernels/conv.py:90",
                    sl5["launches"] + tr5["launches"] + nets["k5"] + run_small["k5"],
                    "flagship predict and train steps with conv_kernel='1'; the 3d_lowres "
@@ -3422,7 +3872,13 @@ def main() -> int:
         "conv_cl": ("conv_cl.cu", "tools/exp_conv_kernel.py:37", conv_cl_launches,
                     "tools.exp_conv_kernel: check, check3 (csub_conv, kernel :359) and CASES"),
     }
+    # K1, K3 and K4: the flagship's pass at the top, each network's pass apart
+    by_path = {kernel: {"3d_fullres_nextou": records[kernel].record(), "ravir_2d": t.record(),
+                        RAVIR_CONFIG: ravir_run["kernels"][kernel].record()}
+               for kernel, t in ravir_records.items()}
     records = {kernel: totals.record() for kernel, totals in records.items()}
+    for kernel, paths in by_path.items():
+        records[kernel]["by_path"] = paths
     records["conv3d"]["cudnn_ms"] = records["conv3d"]["library_ms"]
     print(smi)
     print(json.dumps({"kernels": [

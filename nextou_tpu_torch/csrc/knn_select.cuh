@@ -93,6 +93,7 @@ constexpr int SLOT_LD = SLAB_B + ROW_PAD_B;
 constexpr int DIST_LD = TM + 4;  // row stride (floats) of the chunk's distances
 constexpr int WIN_MAX = 192;     // the largest self-graph one CTA stages whole
 constexpr int WIN_TQ = 32;       // query rows per tile in window mode
+static_assert(WIN_TQ <= TM, "window mode's square sums cover a chunk, not a taller tile");
 constexpr int KMAX = 32;         // the running top-k lives in one warp's lanes
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -106,11 +107,16 @@ __host__ __device__ inline int row_ld(int C, int elem) {
   return (C * elem + KSTEP_B - 1) / KSTEP_B * KSTEP_B + ROW_PAD_B;
 }
 
+// Window mode's square sums: every staged row's, zero past them up to the
+// last chunk's end, since write_dist reads one per column of a TM-wide chunk
+// (and one per row of a WIN_TQ-high tile, never further: WIN_TQ <= TM).
+__host__ __device__ inline int win_sq_len(int M) { return (M + TM - 1) / TM * TM; }
+
 inline size_t smem_bytes(int tq, bool window, int C, int elem, int M) {
   const size_t ld = row_ld(C, elem), dist = (size_t)tq * DIST_LD * sizeof(float);
   if (window) {
     const size_t rows = (size_t)(M + 15) / 16 * 16;
-    return rows * ld + dist + rows * sizeof(float);
+    return rows * ld + dist + win_sq_len(M) * sizeof(float);
   }
   return tq * ld + (size_t)STAGES * TM * SLOT_LD + dist + (tq + TM) * sizeof(float);
 }
@@ -559,6 +565,7 @@ __device__ __forceinline__ void select_rows(const Args& a, unsigned char* smem, 
       const float s = quad_sum(row_sq<T>(smem + (i >> 2) * ld, cp_b, i & 3, 0.f));
       if ((i & 3) == 0) sq[i >> 2] = s;
     }
+    for (int i = rows + tid; i < win_sq_len(a.M); i += THREADS) sq[i] = 0.f;
     __syncthreads();
     for (int n0 = 0; n0 < a.N; n0 += TQ) {
       reset_topk();

@@ -56,6 +56,10 @@ def inputs(B, N, M, C, k, self_graph, values, dev, seed=0):
     return yv, idx, maxv, g
 
 
+class NoDeviceEvents(RuntimeError):
+    """The profiler recorded no device kernel in any of its tries."""
+
+
 def device_ms_by_kernel(fn, n: int) -> dict[str, float]:
     """Device milliseconds per call of ``fn`` by kernel name (memsets too)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -75,7 +79,7 @@ def device_ms_by_kernel(fn, n: int) -> dict[str, float]:
                 out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
         if out:
             return out
-    raise RuntimeError("the profiler recorded no device kernel")
+    raise NoDeviceEvents("the profiler recorded no device kernel")
 
 
 def main(argv=None) -> int:

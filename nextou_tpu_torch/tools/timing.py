@@ -3,6 +3,7 @@ by CUDA events."""
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 import sys
 
@@ -27,16 +28,49 @@ def require_card(tool: str) -> bool:
     return False
 
 
-def cuda_ms(fn, iters: int = 5, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int = 5, warmup: int = 2, min_ms: float = 0.0) -> float:
     """Milliseconds per call of ``fn`` on the current device, by CUDA events
-    around ``iters`` calls after ``warmup`` calls."""
+    around ``iters`` calls after ``warmup`` calls. With ``min_ms``, rounds of
+    ``iters`` calls follow one another until they have taken ``min_ms`` in
+    all, and the median round counts: a call of a few tenths of a
+    millisecond then is not one host hiccup."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    rounds, total = [], 0.0
+    while not rounds or total < min_ms:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        rounds.append(start.elapsed_time(end) / iters)
+        total += rounds[-1] * iters
+    return statistics.median(rounds)
+
+
+def queued_cuda_ms(fn, iters: int = 20, warmup: int = 2, tries: int = 6) -> float | None:
+    """Device milliseconds per call of ``fn``: ``iters`` calls queued behind a
+    spin kernel (``torch.cuda._sleep``), so that the host's per-call work
+    overlaps the device's and CUDA events around the calls time the device
+    alone. Valid where the spin outlasts the queueing (the start event not yet
+    reached once the last call is queued); the spin doubles until it does.
+    None where it never does (a call that waits for the device)."""
+    for _ in range(warmup):
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    torch.cuda.synchronize()
+    cycles = 10_000_000
+    for _ in range(tries):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        end.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    return None

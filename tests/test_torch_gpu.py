@@ -364,6 +364,58 @@ def test_selection_plans_widths_and_duplicates_on_gpu(kind):
                 assert torch.equal(idx3[..., 1].long(), (own + n // 2).expand(b, n))
 
 
+
+# (b, self_graph, n, m, c, k, window mode): the 2D family's widths, C = 512 and
+# an odd 390, both above the 384 channels of the gather's paired path, so that
+# K1's and K3's gather takes its loop of 32 channels, streamed and in window
+# mode; and windows smaller than one 64-candidate chunk (the 2D bottlenecks'
+# 4 x 4 and 5 x 5), whose square sums window mode once read past their end
+WIDE_CASES = [
+    (12, False, 300, 224, 512, 28, 0),
+    (12, True, 224, 224, 390, 32, 0),
+    (192, True, 56, 56, 512, 14, 1),
+    (140, True, 56, 56, 390, 14, 1),
+    (256, True, 16, 16, 16, 2, 1),
+    (192, True, 25, 25, 512, 8, 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "tie_built"])
+def test_wide_channels_and_small_windows_on_gpu(kind):
+    if not torch.cuda.is_available():
+        pytest.skip("K1, K3 and K4 are CUDA code: they need a CUDA card")
+    dev = torch.device("cuda")
+    for i, (b, self_graph, n, m, c, k, window) in enumerate(WIDE_CASES):
+        x, y, rel = _on(dev, *make_case(kind, self_graph, True, n, m, c, 70 + i, b=b))
+        for bf16 in (True, False):
+            plan = port_knn.kernel_plan(b, n, m, c, k, bf16=bf16, self_graph=self_graph)
+            assert plan["window"] == window, (i, bf16, plan)
+        # K1 with bf16 and with f32 coordinates
+        for dtype in (torch.bfloat16, torch.float32):
+            xt, yt = x.to(dtype), None if y is None else y.to(dtype)
+            got = knn_max_neighbors(xt, k, yt, rel)
+            torch.cuda.synchronize()
+            want = knn_max_neighbors_reference(xt, k, yt, rel).to(dtype)
+            rows_off = (got != want).any(-1).float().mean().item()
+            # tie-built: exact arithmetic, so the very same rows
+            assert rows_off <= (0 if kind == "tie_built" else 1e-3), (i, dtype, rows_off)
+        # K3 on f32 coordinates with bf16 and f32 values, K4 on its indices
+        xn = l2_normalize(x).contiguous()
+        yn = xn if y is None else l2_normalize(y).contiguous()
+        g = torch.from_numpy(_random((b, n, c), 90 + i)).to(dev)
+        for values in (torch.bfloat16, torch.float32):
+            yv = (x if y is None else y).to(values).contiguous()
+            maxv, idx = knn_max_idx_cuda(xn, yn, yv, rel, k)
+            torch.cuda.synchronize()
+            want_max, want_idx = knn_max_idx_reference(xn, yn, yv, rel, k)
+            off = (idx.sort(-1).values != want_idx.sort(-1).values).any(-1)
+            assert off.float().mean().item() <= (0 if kind == "tie_built" else 1e-3), i
+            assert not ((maxv != want_max).any(-1) & ~off).any(), i
+            gy = knn_max_bwd_cuda(yv, idx, maxv, g, k)
+            _k4_within_tolerance(gy, yv, idx, maxv, g, k)
+            assert torch.equal(gy, knn_max_bwd_cuda(yv, idx, maxv, g, k))
+
 @pytest.mark.gpu
 def test_split_product_accuracy_through_t1_on_gpu():
     """T1's ``distonly`` and ``nosel`` write a row's least and k-th distance:
