@@ -294,6 +294,7 @@ import time
 import numpy as np
 import torch
 
+from nextou_tpu_torch import trace
 from nextou_tpu_torch.tools.exp_trainer_loop import LOADER_BATCHES, loader_seconds_per_batch
 from nextou_tpu_torch.tools.lockstep import WIDTHS as RUN_WIDTHS
 from nextou_tpu_torch.tools.lockstep import lockstep, narrow_ravir_run
@@ -318,6 +319,27 @@ TRAIN_BATCH = 2
 # kernels' 3xTF32 selection on f32 coordinates)
 PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
 PEAK_SPLIT_FLOPS = 495e12 / 3
+
+
+class Counted:
+    """One of the port's counters (``nextou_tpu_torch/trace.py``), read as
+    ``n`` from a zero that assigning ``n`` sets."""
+
+    def __init__(self, name: str):
+        self.name, self.zero = name, 0
+
+    @property
+    def n(self) -> int:
+        return trace.counters().get(self.name, 0) - self.zero
+
+    @n.setter
+    def n(self, value: int):
+        self.zero = trace.counters().get(self.name, 0) - value
+
+
+# the launches of K1-K5 and the calls of parallel.all_reduce
+K1, K2, K3, K4, K5 = (Counted(f"k{i}.launches") for i in range(1, 6))
+ALL_REDUCES = Counted("all_reduce.calls")
 
 # The kNN kernels' milliseconds per call in their first design (f32 FMAs
 # from shared memory, 32 query rows per CTA), by chip_smoke.py of git commit
@@ -874,8 +896,6 @@ def dilated_kernel_phase(spec, dev) -> Totals:
 def slice_phase(dev, tmp: str, spec, shape) -> dict:
     from nextou_tpu_torch import predict
     from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda
-    from nextou_tpu_torch.kernels.knn import knn_max_cuda
     from nextou_tpu_torch.models import NexToU
     from nextou_tpu_torch.utils import init_weights
 
@@ -894,14 +914,14 @@ def slice_phase(dev, tmp: str, spec, shape) -> dict:
     forwards = n_cases * math.ceil(tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    knn_max_cuda.launches = conv3d_cuda.launches = 0
+    K1.n = K5.n = 0
     t0 = time.time()
     predict.main([model_dir, data_dir, config, "-tr", "nnUNetTrainer_NexToU",
                   "-o", out_dir, "--tile-batch", str(TILE_BATCH), "--device", str(dev)])
     torch.cuda.synchronize()
     main_s = time.time() - t0
-    launches = knn_max_cuda.launches
-    if conv3d_cuda.launches:
+    launches = K1.n
+    if K5.n:
         raise AssertionError("the default configuration launched the conv kernel")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"predict.main: {n_cases} volumes {shape}, {tiles} tiles each, "
@@ -982,8 +1002,6 @@ def small_reference_phase(dev):
 def train_phase(dev, spec) -> dict:
     """The training slice at full width and depth: 3 steps with Dice + CE, 2
     with the BTI Synapse term, one eval step."""
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda
-    from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda
     from nextou_tpu_torch.losses import CompoundLossSpec, TILossSpec, deep_supervision_weights
     from nextou_tpu_torch.models import NexToU
     from nextou_tpu_torch.models.nextou import remat_flags
@@ -1009,8 +1027,8 @@ def train_phase(dev, spec) -> dict:
 
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     stats = {n: b.clone() for n, b in model.named_buffers() if "running_" in n}
-    for counter in (knn_max_idx_cuda, knn_max_bwd_cuda, knn_max_cuda, conv3d_cuda):
-        counter.launches = 0
+    for counter in (K3, K4, K1, K5):
+        counter.n = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     seconds, losses, plan = [], [], [("Dice+CE", base)] * 3 + [("Dice+CE+BTI", bti)] * 2
@@ -1027,12 +1045,12 @@ def train_phase(dev, spec) -> dict:
         if not (math.isfinite(loss) and math.isfinite(norm)):
             raise AssertionError(f"train step {i}: loss {loss}, grad_norm {norm}")
     peak = torch.cuda.max_memory_allocated(dev)
-    k3, k4 = knn_max_idx_cuda.launches, knn_max_bwd_cuda.launches
+    k3, k4 = K3.n, K4.n
     n_steps = len(plan)
     print(f"K3 launches {k3}, K4 launches {k4} in {n_steps} steps "
-          f"({recomputed} of 14 graphers recomputed); K1 launches {knn_max_cuda.launches}; "
+          f"({recomputed} of 14 graphers recomputed); K1 launches {K1.n}; "
           f"peak device memory {peak / 2**30:.2f} GiB")
-    if k3 != (14 + recomputed) * n_steps or k4 != 14 * n_steps or knn_max_cuda.launches:
+    if k3 != (14 + recomputed) * n_steps or k4 != 14 * n_steps or K1.n:
         raise AssertionError(f"K3 launched {k3} times and K4 {k4} times in {n_steps} steps")
     assert state.step == n_steps
 
@@ -1063,18 +1081,18 @@ def train_phase(dev, spec) -> dict:
           f"first with BTI {seconds[3]:.3f}, then {seconds[4]:.3f} "
           f"({TRAIN_BATCH / seconds[4]:.3f} patches/s)")
 
-    knn_max_cuda.launches = 0
+    K1.n = 0
     out = make_eval_step(model, bti, weights)(state, batch)
     torch.cuda.synchronize()
     tp, fp, fn = (out[key].cpu() for key in ("tp", "fp", "fn"))
     seg = torch.from_numpy(batch["seg"])
     truth = torch.stack([(seg == c).sum() for c in range(1, spec.num_classes)])
     dice = pseudo_dice(tp, fp, fn)
-    print(f"eval step: loss {out['loss'].item():.4f}, K1 launches {knn_max_cuda.launches}, "
+    print(f"eval step: loss {out['loss'].item():.4f}, K1 launches {K1.n}, "
           f"pseudo dice {[round(d, 4) for d in dice.tolist()]}")
     ok = (
-        math.isfinite(out["loss"].item()) and knn_max_cuda.launches == 14
-        and k3 == knn_max_idx_cuda.launches
+        math.isfinite(out["loss"].item()) and K1.n == 14
+        and k3 == K3.n
         and all(t.dtype == torch.int64 and (t >= 0).all() for t in (tp, fp, fn))
         and torch.equal(tp + fn, truth) and (tp + fp).sum() <= seg.numel()
     )
@@ -1084,8 +1102,8 @@ def train_phase(dev, spec) -> dict:
     # two more steps with every stage recomputed in the backward pass: K3
     # runs twice per grapher, K4 once
     model.remat = remat_flags(spec, True)
-    for counter in (knn_max_idx_cuda, knn_max_bwd_cuda):
-        counter.launches = 0
+    for counter in (K3, K4):
+        counter.n = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     again_s = []
@@ -1097,12 +1115,12 @@ def train_phase(dev, spec) -> dict:
     loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
     print(f"train steps with every stage recomputed (Dice+CE): {again_s[0]:.3f} s, then "
           f"{again_s[1]:.3f} s; loss {loss:.4f} grad_norm {norm:.4f}; K3 launches "
-          f"{knn_max_idx_cuda.launches}, K4 launches {knn_max_bwd_cuda.launches}; peak device "
+          f"{K3.n}, K4 launches {K4.n}; peak device "
           f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     if not (math.isfinite(loss) and math.isfinite(norm)
-            and (knn_max_idx_cuda.launches, knn_max_bwd_cuda.launches) == (2 * 28, 2 * 14)):
+            and (K3.n, K4.n) == (2 * 28, 2 * 14)):
         raise AssertionError("the recomputed train steps failed their checks")
-    if conv3d_cuda.launches:
+    if K5.n:
         raise AssertionError("the default configuration launched the conv kernel")
     return {"k3": k3, "k4": k4, "s_per_step": min(steady), "s_per_step_bti": seconds[4],
             "peak_bytes": peak, "first_loss": losses[0]}
@@ -1146,7 +1164,6 @@ def small_train_phase(dev) -> int:
     it by 141% (tried on the CPU with the plain version altered).
     Returns K2's launches on the card.
     """
-    from nextou_tpu_torch.kernels.knn import knn_indices_cuda, knn_max_bwd_cuda, knn_max_idx_cuda
     from nextou_tpu_torch.losses import CompoundLossSpec, TILossSpec, deep_supervision_weights
     from nextou_tpu_torch.models import NexToU
     from nextou_tpu_torch.train import create_train_state, make_optimizer, make_train_step
@@ -1170,8 +1187,8 @@ def small_train_phase(dev) -> int:
         model = NexToU(spec, device=d)
         states[kind] = create_train_state(model, opt, seed=4)
         steps[kind] = make_train_step(model, opt, loss_spec, weights)
-    for counter in (knn_indices_cuda, knn_max_idx_cuda, knn_max_bwd_cuda):
-        counter.launches = 0
+    for counter in (K2, K3, K4):
+        counter.n = 0
     for i, batch in enumerate(batches):
         start = flat(states["cpu"].model)
         assert torch.equal(start, flat(states["cuda"].model))
@@ -1188,7 +1205,7 @@ def small_train_phase(dev) -> int:
         if abs(gl - wl) > 1e-4 * abs(wl) or abs(gn - wn) > 2e-2 * abs(wn) or update_off > 0.1:
             raise AssertionError("the train step on the card disagrees with the CPU")
         states["cuda"].load_state_dict(states["cpu"].state_dict())
-    k2, k3, k4 = (c.launches for c in (knn_indices_cuda, knn_max_idx_cuda, knn_max_bwd_cuda))
+    k2, k3, k4 = (c.n for c in (K2, K3, K4))
     print(f"small network launches in 2 steps: K2 {k2} K3 {k3} K4 {k4}")
     # 14 graphers, 2 of them dilated (K2 + plain gather and max), 12 fused
     if (k2, k3, k4) != (2 * 2, 12 * 2, 12 * 2):
@@ -1361,8 +1378,6 @@ def conv_serving_phase(dev, tmp: str, spec, shape) -> dict:
     narrow network of the flagship's geometry with the kernel on against
     off, on the card in f32."""
     from nextou_tpu_torch import predict
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda
-    from nextou_tpu_torch.kernels.knn import knn_max_cuda
     from nextou_tpu_torch.models import NexToU
     from nextou_tpu_torch.utils import init_weights
 
@@ -1371,14 +1386,14 @@ def conv_serving_phase(dev, tmp: str, spec, shape) -> dict:
     forwards = 2 * (8 // MIRRORS_PER_FORWARD)  # 4 tiles at tile batch 2
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    conv3d_cuda.launches = knn_max_cuda.launches = 0
+    K5.n = K1.n = 0
     t0 = time.time()
     predict.main([model_dir, data_dir, config, "-tr", "nnUNetTrainer_NexToU", "-o", out_dir,
                   "--cases", "case_000", "--tile-batch", str(TILE_BATCH), "--device", str(dev),
                   "--conv-kernel", "1"])
     torch.cuda.synchronize()
     main_s = time.time() - t0
-    launches, k1 = conv3d_cuda.launches, knn_max_cuda.launches
+    launches, k1 = K5.n, K1.n
     peak = torch.cuda.max_memory_allocated(dev)
     with np.load(os.path.join(out_dir, "case_000.npz")) as z:
         seg = z["seg"]
@@ -1417,15 +1432,15 @@ def conv_serving_phase(dev, tmp: str, spec, shape) -> dict:
         for mode in ("1", "0"):
             model = init_weights(
                 NexToU(narrow, dtype=dtype, conv_kernel=mode, device=dev), seed=3).eval()
-            conv3d_cuda.launches = 0
+            K5.n = 0
             with torch.no_grad():
                 for p in model.parameters():
                     if p.dim() >= 2:
                         p.mul_(0.5)
                 out[mode] = model(x).float().cpu().numpy()
-            if conv3d_cuda.launches != (5 if mode == "1" else 0):
+            if K5.n != (5 if mode == "1" else 0):
                 raise AssertionError(
-                    f"narrow network, mode {mode}: K5 launched {conv3d_cuda.launches} times")
+                    f"narrow network, mode {mode}: K5 launched {K5.n} times")
         got, want = out["1"], out["0"]
         off = np.abs(got - want) > atol + rtol * np.abs(want)
         same = float(np.mean(np.argmax(got, -1) == np.argmax(want, -1)))
@@ -1442,7 +1457,6 @@ def conv_serving_phase(dev, tmp: str, spec, shape) -> dict:
 def conv_train_phase(dev, spec, first_loss_off: float) -> dict:
     """The training slice with the conv kernel on: the flagship of
     :func:`train_phase` (the same seed and batch) with ``conv_kernel="1"``."""
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda
     from nextou_tpu_torch.losses import CompoundLossSpec, deep_supervision_weights
     from nextou_tpu_torch.models import NexToU
     from nextou_tpu_torch.models.nextou import remat_flags
@@ -1463,14 +1477,14 @@ def conv_train_phase(dev, spec, first_loss_off: float) -> dict:
     for i in range(3):
         if i == 2:  # every stage recomputed: each routed conv launches twice
             model.remat = remat_flags(spec, True)
-        conv3d_cuda.launches = 0
+        K5.n = 0
         t0 = time.time()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         seconds.append(time.time() - t0)
         loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
         losses.append(loss)
-        launches.append(conv3d_cuda.launches)
+        launches.append(K5.n)
         print(f"train step {i} with conv_kernel='1'{' (every stage recomputed)' if i == 2 else ''}: "
               f"loss {loss:.4f} grad_norm {norm:.4f} {seconds[-1]:.3f} s, K5 launches {launches[-1]}")
         if not (math.isfinite(loss) and math.isfinite(norm)):
@@ -1598,8 +1612,6 @@ def trainer_phase(dev, tmp: str) -> dict:
     ``checkpoint_final.pth``."""
     from nextou_tpu_torch import predict, run_training
     from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda
-    from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda
     from nextou_tpu_torch.models.presets import flagship_3d_spec
 
     config, spec = "3d_fullres_nextou", flagship_3d_spec(num_classes=14)
@@ -1607,9 +1619,9 @@ def trainer_phase(dev, tmp: str) -> dict:
     t0 = time.time()
     write_dataset(data_dir, spec, config, TRAIN_CASES, TRAIN_SHAPE, seed=50, labelled=True)
     print(f"{TRAIN_CASES} labelled cases {TRAIN_SHAPE} written in {time.time() - t0:.1f} s")
-    counters = (knn_max_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda)
+    counters = (K1, K3, K4, K5)
     for counter in counters:
-        counter.launches = 0
+        counter.n = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
@@ -1619,7 +1631,7 @@ def trainer_phase(dev, tmp: str) -> dict:
                                      "--device", str(dev)])
     torch.cuda.synchronize()
     main_s = time.time() - t0
-    k1, k3, k4, k5 = (c.launches for c in counters)
+    k1, k3, k4, k5 = (c.n for c in counters)
     peak = torch.cuda.max_memory_allocated(dev)
     out = trainer.output_folder
 
@@ -1668,12 +1680,12 @@ def trainer_phase(dev, tmp: str) -> dict:
 
     # predict.main serves the trainer's checkpoint_final.pth
     pred_dir = os.path.join(tmp, "train_pred")
-    knn_max_cuda.launches = 0
+    K1.n = 0
     predict.main([out, data_dir, config, "-tr", "nnUNetTrainer_NexToU", "-o", pred_dir,
                   "--cases", *val.case_ids, "--tile-batch", str(TILE_BATCH), "--device", str(dev)])
     torch.cuda.synchronize()
-    if knn_max_cuda.launches != 14 * val_forwards:
-        raise AssertionError(f"predict.main launched K1 {knn_max_cuda.launches} times")
+    if K1.n != 14 * val_forwards:
+        raise AssertionError(f"predict.main launched K1 {K1.n} times")
     for cid in val.case_ids:
         with np.load(os.path.join(pred_dir, f"{cid}.npz")) as z:
             seg = z["seg"]
@@ -1870,7 +1882,6 @@ def _dp_rank(r: int, port: int, tmp: str) -> None:
     import torch.distributed as dist
 
     from nextou_tpu_torch import parallel
-    from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda
     from nextou_tpu_torch.models.presets import flagship_3d_spec
 
     os.environ.update(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(DP_WORLD),
@@ -1896,8 +1907,8 @@ def _dp_rank(r: int, port: int, tmp: str) -> None:
         rows = []
         for batch in _dp_batches(spec):
             batch = {k: v[r:r + 1] for k, v in batch.items()}
-            before = (knn_max_idx_cuda.launches, knn_max_bwd_cuda.launches, knn_max_cuda.launches,
-                      parallel.all_reduce.calls, len(reduce_ms))
+            before = (K3.n, K4.n, K1.n,
+                      ALL_REDUCES.n, len(reduce_ms))
             torch.cuda.synchronize(dev)
             t0 = time.time()
             state, metrics = step(state, batch)
@@ -1905,10 +1916,10 @@ def _dp_rank(r: int, port: int, tmp: str) -> None:
             rows.append({
                 "s": time.time() - t0, "loss": metrics["loss"].item(),
                 "grad_norm": metrics["grad_norm"].item(),
-                "k3": knn_max_idx_cuda.launches - before[0],
-                "k4": knn_max_bwd_cuda.launches - before[1],
-                "k1": knn_max_cuda.launches - before[2],
-                "all_reduces": parallel.all_reduce.calls - before[3],
+                "k3": K3.n - before[0],
+                "k4": K4.n - before[1],
+                "k1": K1.n - before[2],
+                "all_reduces": ALL_REDUCES.n - before[3],
                 "all_reduce_ms": sum(reduce_ms[before[4]:]),
             })
         dist.all_reduce = all_reduce
@@ -1973,7 +1984,6 @@ def two_ranks_phase(dev, tmp: str) -> dict:
     K4 launches of the ranks and of the one process."""
     import torch.multiprocessing as mp
 
-    from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_idx_cuda
     from nextou_tpu_torch.models.presets import flagship_3d_spec
 
     t0 = time.time()
@@ -1990,8 +2000,8 @@ def two_ranks_phase(dev, tmp: str) -> dict:
     ranks_s = time.time() - t0
     spec = flagship_3d_spec(num_classes=14, deep_supervision=True)
     state, step = _dp_state(dev, spec)
-    for counter in (knn_max_idx_cuda, knn_max_bwd_cuda):
-        counter.launches = 0
+    for counter in (K3, K4):
+        counter.n = 0
     one = []
     for batch in _dp_batches(spec):
         torch.cuda.synchronize()
@@ -2000,7 +2010,7 @@ def two_ranks_phase(dev, tmp: str) -> dict:
         torch.cuda.synchronize()
         one.append({"s": time.time() - t1, "loss": metrics["loss"].item(),
                     "grad_norm": metrics["grad_norm"].item()})
-    one_k3, one_k4 = knn_max_idx_cuda.launches, knn_max_bwd_cuda.launches
+    one_k3, one_k4 = K3.n, K4.n
     del state, step
     for r, run in enumerate(ranks):
         for i, row in enumerate(run["rows"]):
@@ -2036,7 +2046,6 @@ def all_devices_phase(dev, tmp: str, spec, shape) -> int:
     Returns K1's launches."""
     from nextou_tpu_torch import predict
     from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
-    from nextou_tpu_torch.kernels.knn import knn_max_cuda
 
     config = "3d_fullres_nextou"
     data_dir, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
@@ -2045,16 +2054,16 @@ def all_devices_phase(dev, tmp: str, spec, shape) -> int:
     outs, launches = {}, 0
     for flag in ([], ["--all-devices"]):
         out = os.path.join(tmp, f"all_devices_{bool(flag)}")
-        knn_max_cuda.launches = 0
+        K1.n = 0
         t0 = time.time()
         predict.main([model_dir, data_dir, config, "-tr", "nnUNetTrainer_NexToU", "-o", out,
                       "--cases", "case_000", "--tile-batch", str(TILE_BATCH),
                       "--device", str(dev), *flag])
         torch.cuda.synchronize()
         seconds = time.time() - t0
-        if knn_max_cuda.launches != 14 * forwards:
-            raise AssertionError(f"predict.main {flag}: K1 launched {knn_max_cuda.launches} times")
-        launches += knn_max_cuda.launches
+        if K1.n != 14 * forwards:
+            raise AssertionError(f"predict.main {flag}: K1 launched {K1.n} times")
+        launches += K1.n
         with np.load(os.path.join(out, "case_000.npz")) as z:
             outs[bool(flag)] = z["seg"]
         print(f"phase 21 (c): predict.main {' '.join(flag) or '(no flag)'} on "
@@ -2167,8 +2176,6 @@ def raw_serving_phase(dev, tmp: str, spec) -> dict:
     from nextou_tpu_torch.data.preprocessing import crop_to_nonzero, shape_for_spacing
     from nextou_tpu_torch.infer import raw as raw_mod
     from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda
-    from nextou_tpu_torch.kernels.knn import knn_max_cuda
 
     config = "3d_fullres_nextou"
     raw_dir, model_dir, out_dir = (os.path.join(tmp, d) for d in ("raw", "raw_model", "raw_out"))
@@ -2243,7 +2250,7 @@ def raw_serving_phase(dev, tmp: str, spec) -> dict:
     raw_mod.predict_raw_case = case
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    knn_max_cuda.launches = conv3d_cuda.launches = 0
+    K1.n = K5.n = 0
     t0 = time.time()
     try:
         with HostPeak() as host_peak:
@@ -2254,7 +2261,7 @@ def raw_serving_phase(dev, tmp: str, spec) -> dict:
             setattr(raw_mod, name, fn)
     torch.cuda.synchronize()
     total = time.time() - t0
-    launches, peak = knn_max_cuda.launches, torch.cuda.max_memory_allocated(dev)
+    launches, peak = K1.n, torch.cuda.max_memory_allocated(dev)
     seg, seg_spacing = nio.read_nifti(os.path.join(out_dir, "ct_000.nii.gz"))
     labels = np.unique(seg)
     print(f"predict.main --raw: 1 CT {RAW_SHAPE}, {total:.2f} s incl. model build and load; "
@@ -2263,9 +2270,9 @@ def raw_serving_phase(dev, tmp: str, spec) -> dict:
           f"{seg_spacing}, labels {labels.tolist()}")
     print("seconds by stage: " + ", ".join(f"{s} {t:.3f}" for s, t in stages.items())
           + f"; sum {sum(stages.values()):.3f}")
-    if launches != 14 * forwards or conv3d_cuda.launches:
+    if launches != 14 * forwards or K5.n:
         raise AssertionError(f"K1 launched {launches} times for {forwards} forwards, "
-                             f"K5 {conv3d_cuda.launches}")
+                             f"K5 {K5.n}")
     if "(device accumulation)" not in log:
         raise AssertionError("the raw CT did not take the device-accumulation path")
     assert seg.shape == RAW_SHAPE and seg.dtype == np.int16, (seg.shape, seg.dtype)
@@ -2286,7 +2293,6 @@ def host_accumulation_phase(dev, tmp: str, spec) -> dict:
         make_tile_predictor,
         sliding_window_predict,
     )
-    from nextou_tpu_torch.kernels.knn import knn_max_cuda
 
     config = "3d_fullres_nextou"
     data_dir, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
@@ -2342,7 +2348,7 @@ def host_accumulation_phase(dev, tmp: str, spec) -> dict:
     predict.make_tile_predictor = timed_tile_predictor
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    knn_max_cuda.launches = 0
+    K1.n = 0
     t0 = time.time()
     try:
         with HostPeak() as host_peak:
@@ -2352,7 +2358,7 @@ def host_accumulation_phase(dev, tmp: str, spec) -> dict:
     finally:
         predict.make_tile_predictor = make
     total = time.time() - t0
-    launches, peak = knn_max_cuda.launches, torch.cuda.max_memory_allocated(dev)
+    launches, peak = K1.n, torch.cuda.max_memory_allocated(dev)
     with np.load(os.path.join(out_dir, "case_000.npz")) as z:
         seg = z["seg"]
     print(f"predict.main over the budget: {total:.2f} s incl. model build and load and the "
@@ -2375,7 +2381,6 @@ def fold_ensemble_phase(dev, tmp: str, spec) -> dict:
     probabilities, the ensemble CLI and postprocessing, on phase 5's first
     case (one case keeps the script inside half its time limit)."""
     from nextou_tpu_torch import ensemble, postprocess, predict
-    from nextou_tpu_torch.kernels.knn import knn_max_cuda
     from nextou_tpu_torch.models import NexToU
     from nextou_tpu_torch.utils import init_weights
 
@@ -2395,7 +2400,7 @@ def fold_ensemble_phase(dev, tmp: str, spec) -> dict:
         "f01", "f0", "f1", "pp", "cli", "applied")}
     base = [folds, data_dir, config, "--save-probabilities", "--tile-batch", str(TILE_BATCH),
             "--cases", "case_000", "--device", str(dev)]
-    knn_max_cuda.launches = 0
+    K1.n = 0
     t0 = time.time()
     seconds = {}
     for name, extra in (("f01", ["-f", "0", "1"]), ("f0", ["-f", "0"]), ("f1", ["-f", "1"]),
@@ -2404,7 +2409,7 @@ def fold_ensemble_phase(dev, tmp: str, spec) -> dict:
         log = run_main(predict.main, base + extra + ["-o", out[name]])
         seconds[name] = time.time() - t
         assert log.count("(device accumulation)") == 1, log
-    launches = knn_max_cuda.launches
+    launches = K1.n
     forwards = 2 * (8 // MIRRORS_PER_FORWARD) * 5  # 2 tile batches, 5 folds' runs
     t = time.time()
     run_main(ensemble.main, [out["f0"], out["f1"], "-o", out["cli"]])
@@ -2529,8 +2534,6 @@ def plans_networks_phase(dev, tmp: str) -> dict:
     from nextou_tpu_torch import predict
     from nextou_tpu_torch.core.pos_embed import relative_pos_bias
     from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda
-    from nextou_tpu_torch.kernels.knn import knn_max_cuda
     from nextou_tpu_torch.models import PlainConvUNet
     from nextou_tpu_torch.models.presets import flagship_3d_spec
     from nextou_tpu_torch.nn.graphers import Grapher
@@ -2563,13 +2566,13 @@ def plans_networks_phase(dev, tmp: str) -> dict:
         out_dir = os.path.join(tmp, f"lowres_out_{mode}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        conv3d_cuda.launches = 0
+        K5.n = 0
         t0 = time.time()
         predict.main([model_dir, data_dir, "3d_lowres", "-tr", "nnUNetTrainer", "-o", out_dir,
                       "--tile-batch", str(TILE_BATCH), "--device", str(dev),
                       "--conv-kernel", mode])
         torch.cuda.synchronize()
-        main_s, launches = time.time() - t0, conv3d_cuda.launches
+        main_s, launches = time.time() - t0, K5.n
         print(f"predict.main -tr nnUNetTrainer 3d_lowres --conv-kernel {mode}: 2 volumes "
               f"{LOWRES_VOLUME}, {tiles} tiles each, {forwards} forwards, {main_s:.2f} s incl. "
               f"model build and load; K5 launches {launches} ({launches / forwards:g} per "
@@ -2628,7 +2631,7 @@ def plans_networks_phase(dev, tmp: str) -> dict:
     rng = np.random.default_rng(19)
     batch = {"data": rng.standard_normal((TRAIN_BATCH, *rs.patch_size, 1), dtype=np.float32),
              "seg": rng.integers(0, 14, (TRAIN_BATCH, *rs.patch_size))}
-    conv3d_cuda.launches = 0
+    K5.n = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     trainer.network.eval()
@@ -2643,10 +2646,10 @@ def plans_networks_phase(dev, tmp: str) -> dict:
     if not (len(outs) == 5 and outs[0].shape == (TRAIN_BATCH, *rs.patch_size, 14)
             and all(torch.isfinite(o.float()).all() for o in outs)):
         raise AssertionError("the residual encoder U-Net's forward")
-    fwd_k5 = conv3d_cuda.launches
+    fwd_k5 = K5.n
     del outs, x
     before = {n: p.detach().clone() for n, p in trainer.network.named_parameters()}
-    conv3d_cuda.launches = 0
+    K5.n = 0
     step_s = []
     for i in range(3):
         t0 = time.time()
@@ -2658,7 +2661,7 @@ def plans_networks_phase(dev, tmp: str) -> dict:
               f"{step_s[-1]:.3f} s")
         if not (math.isfinite(loss) and math.isfinite(norm)):
             raise AssertionError(f"ResidualEncoderUNet train step {i}: loss {loss}")
-    res_k5 = conv3d_cuda.launches
+    res_k5 = K5.n
     res_peak = torch.cuda.max_memory_allocated(dev)
     unmoved = moved_parameters(trainer.network, before)
     print(f"ResidualEncoderUNet (3d_fullres {rs.patch_size}, blocks "
@@ -2688,9 +2691,9 @@ def plans_networks_phase(dev, tmp: str) -> dict:
             for p in g.parameters():
                 if p.dim() >= 2:
                     p.mul_(0.5)
-            knn_max_cuda.launches = 0
+            K1.n = 0
             out.append(g.eval()(torch.from_numpy(x).to(d)).cpu().numpy())
-    grapher_k1 = knn_max_cuda.launches
+    grapher_k1 = K1.n
     want, got = out
     off = np.abs(got - want) > 2e-3 + 1e-3 * np.abs(want)
     print(f"Grapher over the flagship bottleneck ({TRAIN_BATCH} x {sp} x {C}, k {k}, N {n}), "
@@ -2718,8 +2721,6 @@ def cascade_phase(dev, tmp: str) -> dict:
     from nextou_tpu_torch.data.io import read_image, write_nifti
     from nextou_tpu_torch.data.resampling import resample_data_or_seg_to_shape
     from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda
-    from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda
     from nextou_tpu_torch.plans import PlansManager
 
     t_phase = time.time()
@@ -2748,9 +2749,9 @@ def cascade_phase(dev, tmp: str) -> dict:
           f"(resampled from {full.spacing} to {low.spacing} mm) written in "
           f"{time.time() - t_phase:.1f} s")
 
-    counters = (knn_max_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda)
+    counters = (K1, K3, K4, K5)
     for counter in counters:
-        counter.launches = 0
+        counter.n = 0
     t0 = time.time()
     with fewer_eval_steps():
         lowres = run_training.main([folder, "3d_lowres", "0", "-tr", "nnUNetTrainer", "--epochs",
@@ -2758,7 +2759,7 @@ def cascade_phase(dev, tmp: str) -> dict:
                                     "--device", str(dev)])
     torch.cuda.synchronize()
     low_s = time.time() - t0
-    if any(c.launches for c in counters) or not math.isfinite(lowres.log_history[0]["train_loss"]):
+    if any(c.n for c in counters) or not math.isfinite(lowres.log_history[0]["train_loss"]):
         raise AssertionError("the lowres stage launched a kNN or conv kernel, or its loss")
     e = lowres.log_history[0]
     print(f"run_training -tr nnUNetTrainer 3d_lowres: {low_s:.2f} s incl. model build and the "
@@ -2779,7 +2780,7 @@ def cascade_phase(dev, tmp: str) -> dict:
           f"cascade stage's grid {CASCADE_SHAPE}")
 
     for counter in counters:
-        counter.launches = 0
+        counter.n = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
@@ -2789,7 +2790,7 @@ def cascade_phase(dev, tmp: str) -> dict:
                                      "--device", str(dev)])
     torch.cuda.synchronize()
     main_s = time.time() - t0
-    k1, k3, k4, k5 = (c.launches for c in counters)
+    k1, k3, k4, k5 = (c.n for c in counters)
     peak = torch.cuda.max_memory_allocated(dev)
     _, val = trainer.get_split()
     tiles = math.prod(len(s) for s in compute_sliding_window_steps(CASCADE_SHAPE,
@@ -2815,13 +2816,13 @@ def cascade_phase(dev, tmp: str) -> dict:
 
     # serve the cascade stage with -prev: a preprocessed case, then a raw NIfTI one
     cid = val.case_ids[0]
-    knn_max_cuda.launches = 0
+    K1.n = 0
     t0 = time.time()
     predict.main([out, folder, config, "-tr", "nnUNetTrainer_NexToU", "-prev", prev_dir,
                   "-o", os.path.join(tmp, "cascade_pred"), "--cases", cid,
                   "--tile-batch", str(TILE_BATCH), "--device", str(dev)])
     torch.cuda.synchronize()
-    pre_s, pre_k1 = time.time() - t0, knn_max_cuda.launches
+    pre_s, pre_k1 = time.time() - t0, K1.n
     with np.load(os.path.join(tmp, "cascade_pred", f"{cid}.npz")) as z:
         seg = z["seg"]
     with np.load(os.path.join(out, "validation", f"{cid}.npz")) as z:
@@ -2847,13 +2848,13 @@ def cascade_phase(dev, tmp: str) -> dict:
     raw_tiles = math.prod(len(s) for s in compute_sliding_window_steps(
         hu.shape[::-1], trainer.model_spec.patch_size))
     raw_fwd = math.ceil(raw_tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
-    knn_max_cuda.launches = 0
+    K1.n = 0
     t0 = time.time()
     predict.main([out, raw_dir, config, "--raw", "-tr", "nnUNetTrainer_NexToU", "-prev",
                   raw_prev, "-o", os.path.join(tmp, "cascade_raw_out"),
                   "--tile-batch", str(TILE_BATCH), "--device", str(dev)])
     torch.cuda.synchronize()
-    raw_s, raw_k1 = time.time() - t0, knn_max_cuda.launches
+    raw_s, raw_k1 = time.time() - t0, K1.n
     seg, spacing = read_image(os.path.join(tmp, "cascade_raw_out", f"{cid}.nii.gz"))
     print(f"predict.main --raw -prev {cid} (cropped to {hu.shape[::-1]}): {raw_s:.2f} s, K1 "
           f"{raw_k1} launches ({raw_fwd} forwards), NIfTI {seg.shape} {seg.dtype} at "
@@ -2973,8 +2974,6 @@ def pipeline_phase(dev, tmp: str, trained: dict) -> dict:
     from nextou_tpu_torch.data.io import read_image
     from nextou_tpu_torch.infer import raw as raw_mod
     from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda
-    from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda
     from nextou_tpu_torch.plans import load_dataset_json
     from nextou_tpu_torch.train import get_trainer_class
 
@@ -3011,9 +3010,9 @@ def pipeline_phase(dev, tmp: str, trained: dict) -> dict:
           f"preprocessing {seconds['preprocess_dataset']:.2f} s ({len(cases)} cases in {ident}/)")
 
     # (c) the planned flagship on the card
-    counters = (knn_max_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda)
+    counters = (K1, K3, K4, K5)
     for counter in counters:
-        counter.launches = 0
+        counter.n = 0
     t0 = time.time()
     with fewer_eval_steps():
         trainer = run_training.main([pre, DS_CONFIG, "0", "-tr", "nnUNetTrainer_NexToU",
@@ -3021,7 +3020,7 @@ def pipeline_phase(dev, tmp: str, trained: dict) -> dict:
                                      "--device", str(dev)])
     torch.cuda.synchronize()
     seconds["run_training"] = time.time() - t0
-    k1, k3, k4, k5 = (c.launches for c in counters)
+    k1, k3, k4, k5 = (c.n for c in counters)
     _, val = trainer.get_split()
     tiles = math.prod(len(s) for s in compute_sliding_window_steps(DS_SHAPE, spec.patch_size))
     fwd_case = math.ceil(tiles / TILE_BATCH) * (8 // MIRRORS_PER_FORWARD)
@@ -3074,7 +3073,7 @@ def pipeline_phase(dev, tmp: str, trained: dict) -> dict:
     seconds["import_torch_checkpoint"] = time.time() - t0
     segs, k1_serve = {}, 0
     for step, model in (("e", run), ("f", imported)):
-        knn_max_cuda.launches = 0
+        K1.n = 0
         out_dir = os.path.join(tmp, f"served_{step}")
         t0 = time.time()
         with timing(raw_mod, ("read_image", "resample_data_or_seg_to_shape", "write_nifti"),
@@ -3083,7 +3082,7 @@ def pipeline_phase(dev, tmp: str, trained: dict) -> dict:
                           "--tile-batch", str(TILE_BATCH), "--device", str(dev)])
         torch.cuda.synchronize()
         seconds[f"predict {step}"] = time.time() - t0
-        k1_serve += knn_max_cuda.launches
+        k1_serve += K1.n
         seg, sp = read_image(os.path.join(out_dir, f"case_{DS_CASES:03d}.nii.gz"))
         segs[step] = seg
         print(f"({step}) predict.main --raw from {os.path.basename(model)}: "
@@ -3091,10 +3090,10 @@ def pipeline_phase(dev, tmp: str, trained: dict) -> dict:
               f"{seconds[f'{step} read_image']:.2f}, resampling "
               f"{seconds[f'{step} resample_data_or_seg_to_shape']:.2f}, writing the NIfTI "
               f"{seconds[f'{step} write_nifti']:.2f} s), K1 "
-              f"{knn_max_cuda.launches} launches ({fwd_case} forwards), NIfTI {seg.shape} "
+              f"{K1.n} launches ({fwd_case} forwards), NIfTI {seg.shape} "
               f"{seg.dtype} at {tuple(round(s, 3) for s in sp)} mm, labels "
               f"{np.unique(seg).tolist()}")
-        expect_launches(f"predict ({step}), K1", (knn_max_cuda.launches,), (14 * fwd_case,))
+        expect_launches(f"predict ({step}), K1", (K1.n,), (14 * fwd_case,))
         if seg.shape != DS_SHAPE or seg.min() < 0 or seg.max() >= 14:
             raise AssertionError(f"the served seg ({step})")
     same = bool(np.array_equal(segs["e"], segs["f"]))
@@ -3173,8 +3172,7 @@ def run_small_phase(dev, tmp: str) -> dict:
     "0"."""
     from unittest import mock
 
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda, every_333_conv
-    from nextou_tpu_torch.kernels.knn import knn_indices_cuda, knn_max_bwd_cuda, knn_max_idx_cuda
+    from nextou_tpu_torch.kernels.conv import every_333_conv
     from nextou_tpu_torch.nn import conv_blocks
     from nextou_tpu_torch.train import make_optimizer, poly_lr
 
@@ -3183,7 +3181,7 @@ def run_small_phase(dev, tmp: str) -> dict:
     batches, loss_specs = run_batches(tmp)
     # the poly rate per "epoch" of 10 steps over two epochs: 1e-2, then 5.4e-3
     opt = make_optimizer(poly_lr(1e-2, 2, 0.9, steps_per_epoch=RUN_BTI_FROM))
-    counters = (knn_indices_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda)
+    counters = (K2, K3, K4, K5)
     legs = [int(i >= RUN_BTI_FROM) for i in range(RUN_STEPS)]
     out = {"k2": 0, "k3": 0, "k4": 0, "k5": 0, "worst": {}}
     witnessed = 0
@@ -3192,12 +3190,12 @@ def run_small_phase(dev, tmp: str) -> dict:
                   if mode == "1" else contextlib.nullcontext())
         with region:
             for counter in counters:
-                counter.launches = 0
+                counter.n = 0
             worst, n, _ = lockstep(dev, spec, batches, legs, loss_specs, opt, 23,
                                 f"(a) conv_kernel={mode!r}", RUN_WITNESS_STEPS - witnessed,
                                 conv_kernel=mode)
             witnessed += n
-            k2, k3, k4, k5 = (c.launches for c in counters)
+            k2, k3, k4, k5 = (c.n for c in counters)
             print(f"(a) conv_kernel={mode!r}: worst over {RUN_STEPS} steps, card vs CPU: "
                   + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
                   + f"; launches K2 {k2} K3 {k3} K4 {k4} K5 {k5}")
@@ -3228,8 +3226,6 @@ def run_flagship_phase(dev, data_dir: str) -> dict:
 
     from nextou_tpu_torch import run_training
     from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda
-    from nextou_tpu_torch.kernels.knn import knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda
     from nextou_tpu_torch.losses import compound
     from nextou_tpu_torch.train import get_trainer_class
     from nextou_tpu_torch.train.trainer import NexToUTrainer
@@ -3243,9 +3239,9 @@ def run_flagship_phase(dev, data_dir: str) -> dict:
         terms.append(term.detach())
         return term
 
-    counters = (knn_max_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda)
+    counters = (K1, K3, K4, K5)
     for counter in counters:
-        counter.launches = 0
+        counter.n = 0
     torch.cuda.reset_peak_memory_stats(dev)
     compound.ti_loss = recorded_ti
     try:
@@ -3260,7 +3256,7 @@ def run_flagship_phase(dev, data_dir: str) -> dict:
         compound.ti_loss = ti
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
-    k1, k3, k4, k5 = (c.launches for c in counters)
+    k1, k3, k4, k5 = (c.n for c in counters)
     terms = torch.stack(terms).cpu()
     log = trainer.log_history
     for e in log:
@@ -3374,9 +3370,6 @@ def ravir_narrow_phase(dev, loss) -> dict:
     state. Launches exact: K1 14 per served forward, K3 and K4 14 per step."""
     from nextou_tpu_torch.infer import make_device_sliding_predictor
     from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
-    from nextou_tpu_torch.kernels.knn import (
-        knn_indices_cuda, knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda,
-    )
     from nextou_tpu_torch.models import NexToU
     from nextou_tpu_torch.models.spec import build_model_spec
     from nextou_tpu_torch.tools.lockstep import NARROW_LR, NARROW_SEED
@@ -3398,13 +3391,13 @@ def ravir_narrow_phase(dev, loss) -> dict:
             for p in model.parameters():
                 if p.dim() >= 2:
                     p.mul_(0.5)
-        knn_max_cuda.launches = 0
+        K1.n = 0
         out.append(make_device_sliding_predictor(
             model, (0, 1), spec.patch_size, spec.num_classes, device=d,
             tile_batch=TILE_BATCH, transfer_dtype=torch.float32,
         )(data).cpu().numpy())
         if d == dev:
-            k1 = knn_max_cuda.launches
+            k1 = K1.n
     got, want = out
     off = np.abs(got - want) > 2e-3 + 1e-3 * np.abs(want)
     agree = float(np.mean(np.argmax(got, -1) == np.argmax(want, -1)))
@@ -3421,12 +3414,12 @@ def ravir_narrow_phase(dev, loss) -> dict:
           f"to a vein {crossed}; from {len(warmup)} Dice + CE steps on the CPU")
     if not all(crossed):
         raise AssertionError("phase 24 (b): a label map without an artery next to a vein")
-    for counter in (knn_max_idx_cuda, knn_max_bwd_cuda, knn_indices_cuda):
-        counter.launches = 0
+    for counter in (K3, K4, K2):
+        counter.n = 0
     worst, witnessed, probed = lockstep(
         dev, train_spec, batches, [0] * len(batches), [loss], make_optimizer(NARROW_LR),
         NARROW_SEED, "(b) RAVIR BTI", NARROW_2D_WITNESS, warmup=warmup, probe=(1e-7, -1e-7))
-    k3, k4, k2 = (c.launches for c in (knn_max_idx_cuda, knn_max_bwd_cuda, knn_indices_cuda))
+    k3, k4, k2 = (c.n for c in (K3, K4, K2))
     moved = sum(any(d[k] > w for d in step.values() for k, w in RUN_WIDTHS.items())
                 for step in probed)
     print(f"(b) worst over {len(batches)} steps, card vs CPU: "
@@ -3448,28 +3441,24 @@ def ravir_full_phase(dev, spec, loss) -> dict:
     forward, probabilities summing to 1, labels in range."""
     from nextou_tpu_torch import predict
     from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda
-    from nextou_tpu_torch.kernels.knn import (
-        knn_indices_cuda, knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda,
-    )
     from nextou_tpu_torch.losses import deep_supervision_weights
     from nextou_tpu_torch.models import NexToU
     from nextou_tpu_torch.train import create_train_state, make_optimizer, make_train_step, poly_lr
     from nextou_tpu_torch.utils import init_weights
 
     t_phase = time.time()
-    counters = (knn_max_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda, knn_indices_cuda)
+    counters = (K1, K3, K4, K5, K2)
     infer_spec = dataclasses.replace(spec, deep_supervision=False)
     model = init_weights(NexToU(infer_spec, dtype=torch.bfloat16, device=dev), seed=0).eval()
     rng = np.random.default_rng(25)
     x = torch.from_numpy(vessel_batch(rng, RAVIR_BATCH, spec.patch_size)["data"]).to(dev)
     for counter in counters:
-        counter.launches = 0
+        counter.n = 0
     torch.cuda.reset_peak_memory_stats(dev)
     with torch.no_grad():
         logits = model(x)
         torch.cuda.synchronize()
-        k1 = knn_max_cuda.launches
+        k1 = K1.n
         fwd_ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
     peak_fwd = torch.cuda.max_memory_allocated(dev)
     print(f"(c) ravir_2d_spec forward, batch {RAVIR_BATCH} x {spec.patch_size}, bf16: "
@@ -3487,7 +3476,7 @@ def ravir_full_phase(dev, spec, loss) -> dict:
     step = make_train_step(train_model, opt, loss, deep_supervision_weights(len(spec.decoder)))
     batch = vessel_batch(rng, RAVIR_BATCH, spec.patch_size)
     for counter in counters:
-        counter.launches = 0
+        counter.n = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     seconds = []
@@ -3501,13 +3490,13 @@ def ravir_full_phase(dev, spec, loss) -> dict:
         if not (math.isfinite(l) and math.isfinite(n)):
             raise AssertionError(f"phase 24 (c) train step {i}: loss {l}, grad_norm {n}")
     peak_train = torch.cuda.max_memory_allocated(dev)
-    k3, k4 = knn_max_idx_cuda.launches, knn_max_bwd_cuda.launches
+    k3, k4 = K3.n, K4.n
     print(f"(c) train steps at batch {RAVIR_BATCH}, deep supervision, {RAVIR_TRAINER}'s loss: "
           f"first {seconds[0]:.3f} s, then {', '.join(f'{s:.3f}' for s in seconds[1:])} s "
           f"({RAVIR_BATCH / min(seconds[1:]):.1f} patches/s); peak device memory "
-          f"{peak_train / 2**30:.2f} GiB; K3 {k3}, K4 {k4}, K1 {knn_max_cuda.launches} launches")
+          f"{peak_train / 2**30:.2f} GiB; K3 {k3}, K4 {k4}, K1 {K1.n} launches")
     expect_launches("phase 24 (c) train steps (K3, K4, K1, K5, K2)",
-                    (k3, k4, knn_max_cuda.launches, conv3d_cuda.launches, knn_indices_cuda.launches),
+                    (k3, k4, K1.n, K5.n, K2.n),
                     (14 * RAVIR_STEPS, 14 * RAVIR_STEPS, 0, 0, 0))
     del train_model, state, step, batch
     torch.cuda.empty_cache()
@@ -3518,7 +3507,7 @@ def ravir_full_phase(dev, spec, loss) -> dict:
     forwards = math.ceil(tiles / TILE_BATCH) * (4 // MIRRORS_PER_FORWARD)
     seg_pred = predict.build_predictor(model, (0, 1), tile_batch=TILE_BATCH, output="seg")
     probs = predict.build_predictor(model, (0, 1), tile_batch=TILE_BATCH)(image)
-    knn_max_cuda.launches = 0
+    K1.n = 0
     times = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -3526,7 +3515,7 @@ def ravir_full_phase(dev, spec, loss) -> dict:
         seg = seg_pred(image)
         torch.cuda.synchronize()
         times.append(time.time() - t0)
-    k1_serve = knn_max_cuda.launches
+    k1_serve = K1.n
     sums = probs.sum(-1)
     print(f"(c) one {RAVIR_IMAGE} image through predict.build_predictor (mirror axes (0, 1), "
           f"tile batch {TILE_BATCH}, {seg_pred.path}): {tiles} tiles, {forwards} forwards, "
@@ -3535,7 +3524,7 @@ def ravir_full_phase(dev, spec, loss) -> dict:
           f"[{sums.min():.6f}, {sums.max():.6f}], argmax = seg on "
           f"{float(np.mean(np.argmax(probs, -1) == seg)):.6f}")
     expect_launches("phase 24 (c) serving (K1, K5, K2)",
-                    (k1_serve, conv3d_cuda.launches, knn_indices_cuda.launches),
+                    (k1_serve, K5.n, K2.n),
                     (2 * 14 * forwards, 0, 0))
     if seg.shape != RAVIR_IMAGE or seg.max() >= spec.num_classes or np.abs(sums - 1).max() > 1e-3:
         raise AssertionError("phase 24 (c): the served image")
@@ -3588,10 +3577,6 @@ def ravir_pipeline_phase(dev, tmp: str) -> dict:
     from nextou_tpu_torch.data.io import read_image
     from nextou_tpu_torch.infer import raw as raw_mod
     from nextou_tpu_torch.infer.sliding_window import compute_sliding_window_steps
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda
-    from nextou_tpu_torch.kernels.knn import (
-        knn_indices_cuda, knn_max_bwd_cuda, knn_max_cuda, knn_max_idx_cuda,
-    )
     from nextou_tpu_torch.plans import load_dataset_json
     from nextou_tpu_torch.train import get_trainer_class
     from nextou_tpu_torch.train.trainer import NexToUTrainer
@@ -3639,9 +3624,9 @@ def ravir_pipeline_phase(dev, tmp: str) -> dict:
     seconds["kernels held"] = time.time() - t0
     torch.cuda.empty_cache()
 
-    counters = (knn_max_cuda, knn_max_idx_cuda, knn_max_bwd_cuda, conv3d_cuda, knn_indices_cuda)
+    counters = (K1, K3, K4, K5, K2)
     for counter in counters:
-        counter.launches = 0
+        counter.n = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
     with mock.patch.object(trainer_cls, "num_val_iterations_per_epoch", RAVIR_EVAL_STEPS), \
@@ -3652,7 +3637,7 @@ def ravir_pipeline_phase(dev, tmp: str) -> dict:
     torch.cuda.synchronize()
     seconds["run_training"] = time.time() - t0
     peak = torch.cuda.max_memory_allocated(dev)
-    k1, k3, k4, k5, k2 = (c.launches for c in counters)
+    k1, k3, k4, k5, k2 = (c.n for c in counters)
     _, val = trainer.get_split()
     tiles = math.prod(len(s) for s in compute_sliding_window_steps(RAVIR_IMAGE, spec.patch_size))
     fwd_case = math.ceil(tiles / TILE_BATCH) * (4 // MIRRORS_PER_FORWARD)
@@ -3683,7 +3668,7 @@ def ravir_pipeline_phase(dev, tmp: str) -> dict:
         raise AssertionError("phase 24 (d): the trainer wrote no checkpoint_final.pth")
 
     for counter in counters:
-        counter.launches = 0
+        counter.n = 0
     out_dir = os.path.join(tmp, "ravir_served")
     t0 = time.time()
     with timing(raw_mod, ("read_image", "resample_data_or_seg_to_shape", "write_nifti"), seconds,
@@ -3694,15 +3679,15 @@ def ravir_pipeline_phase(dev, tmp: str) -> dict:
     torch.cuda.synchronize()
     seconds["predict"] = time.time() - t0
     seg, sp = read_image(os.path.join(out_dir, f"ravir_{RAVIR_CASES:03d}.nii.gz"))
-    k1_serve = knn_max_cuda.launches
+    k1_serve = K1.n
     print(f"(d) predict.main --raw of the test image: {seconds['predict']:.2f} s incl. model "
           f"build (reading {seconds['predict read_image']:.2f}, writing "
           f"{seconds['predict write_nifti']:.2f} s), K1 {k1_serve} launches ({fwd_case} "
           f"forwards); NIfTI {seg.shape} {seg.dtype} at {tuple(float(s) for s in sp)}, labels "
           f"{np.unique(seg).tolist()}")
     expect_launches("phase 24 (d) predict --raw (K1, K3, K5, K2)",
-                    (k1_serve, knn_max_idx_cuda.launches, conv3d_cuda.launches,
-                     knn_indices_cuda.launches), (14 * fwd_case, 0, 0, 0))
+                    (k1_serve, K3.n, K5.n,
+                     K2.n), (14 * fwd_case, 0, 0, 0))
     if seg.shape != (1, *RAVIR_IMAGE) or tuple(sp) != (999.0, 1.0, 1.0) or not set(
             np.unique(seg).tolist()) <= {0, 1, 2}:
         raise AssertionError("phase 24 (d): the served NIfTI")

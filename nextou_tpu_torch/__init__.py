@@ -16,6 +16,8 @@ every module here is tested against.
 - ``compat``   weights from ``nextou_tpu`` variables and upstream checkpoints
 - ``parallel`` data parallel over processes (``torch.distributed``), replicas
                over a process's cards
+- ``trace``    spans (recorded under ``torch.profiler``) and counters: where a
+               train step's or a served case's time goes
 - ``predict``  the prediction CLI (preprocessed or raw cases, fold ensembles);
   ``plan_and_preprocess``, ``convert_msd``, ``run_training``,
   ``find_best_configuration``, ``import_torch_checkpoint``, ``ensemble``,

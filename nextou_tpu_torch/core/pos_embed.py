@@ -17,10 +17,12 @@ actual (N, N_reduced) node counts (upstream
 from __future__ import annotations
 
 import functools
+import time
 
 import numpy as np
 
 from nextou_tpu_torch.core.resize import bicubic_resize_2d
+from nextou_tpu_torch.trace import count
 
 
 def get_1d_sincos_pos_embed(embed_dim: int, pos: np.ndarray) -> np.ndarray:
@@ -74,10 +76,12 @@ def relative_pos_bias(
 
     The flagship's two (10752, *) tables take seconds each on one host core,
     so results are memoized in-process (encoder and decoder stages share
-    identical tables). The cached array is shared: callers copy it.
+    identical tables). The cached array is shared: callers copy it. The
+    builds' nanoseconds add to the counter ``setup.tables_ns`` (``trace.py``).
 
     Returns float32 ``(n, n_reduced)``.
     """
+    t0 = time.perf_counter_ns()
     if spatial_dims == 2:
         grid = int(n ** (1.0 / 2.0))
         rel = get_2d_relative_pos_embed(channels, grid).astype(np.float32)
@@ -87,4 +91,6 @@ def relative_pos_bias(
     else:
         raise ValueError(f"spatial_dims must be 2 or 3, got {spatial_dims}")
     rel = bicubic_resize_2d(rel, (n, n_reduced), dtype=np.float32)
-    return (-rel).astype(np.float32)
+    rel = (-rel).astype(np.float32)
+    count("setup.tables_ns", time.perf_counter_ns() - t0)
+    return rel

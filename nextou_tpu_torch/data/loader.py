@@ -26,6 +26,7 @@ import torch
 from nextou_tpu_torch.data.augment import AugmentConfig, augment_batch, cascade_onehot_noise
 from nextou_tpu_torch.data.device_augment import draw_augment_plan
 from nextou_tpu_torch.data.sampler import PatchSampler
+from nextou_tpu_torch.trace import span
 
 
 class PatchDataLoader:
@@ -154,6 +155,11 @@ class PatchDataLoader:
         return self
 
     def __next__(self):
+        # the consumer's wait is the span loader.next while tracing is on
+        with span("loader.next"):
+            return self._next()
+
+    def _next(self):
         # a producer that died (a corrupt case, a missing prev-stage file) must
         # surface its exception promptly — checked BEFORE serving the next
         # batch, and polled with a timeout instead of blocking forever on the

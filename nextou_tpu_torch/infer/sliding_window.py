@@ -15,6 +15,10 @@ Two ways to accumulate, with one tile forward (:func:`make_tile_predictor`):
   and uploaded per tile batch, each batch's forwards still run on the
   device, its probabilities come back and are accumulated in f32 host
   memory.
+
+While tracing is on (``trace.py``) each tile batch's TTA is the span
+``serve.tile_predict``, each forward in it ``serve.forward``, and the
+Gaussian accumulation of a tile batch ``serve.accumulate``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+from nextou_tpu_torch.trace import span
 
 MIRRORS_PER_FORWARD = 2  # mirror variants stacked into one forward
 
@@ -92,20 +98,22 @@ def make_tile_predictor(
     act = _activation(activation)
 
     def tile_forward(tiles: torch.Tensor) -> torch.Tensor:
-        total = None
-        for g0 in range(0, len(combos), MIRRORS_PER_FORWARD):
-            group = combos[g0:g0 + MIRRORS_PER_FORWARD]
-            stacked = torch.cat([
-                torch.flip(tiles, [a + 1 for a in c]) if c else tiles
-                for c in group
-            ])
-            logits = apply_fn(stacked)
-            for c, part in zip(group, logits.chunk(len(group))):
-                if c:
-                    part = torch.flip(part, [a + 1 for a in c])
-                probs = act(part.float())
-                total = probs if total is None else total + probs
-        return total / float(len(combos))
+        with span("serve.tile_predict"):
+            total = None
+            for g0 in range(0, len(combos), MIRRORS_PER_FORWARD):
+                group = combos[g0:g0 + MIRRORS_PER_FORWARD]
+                stacked = torch.cat([
+                    torch.flip(tiles, [a + 1 for a in c]) if c else tiles
+                    for c in group
+                ])
+                with span("serve.forward"):
+                    logits = apply_fn(stacked)
+                for c, part in zip(group, logits.chunk(len(group))):
+                    if c:
+                        part = torch.flip(part, [a + 1 for a in c])
+                    probs = act(part.float())
+                    total = probs if total is None else total + probs
+            return total / float(len(combos))
 
     return tile_forward
 
@@ -187,9 +195,10 @@ def make_device_sliding_predictor(
         for slices, n_real in _tile_batches(coords, tile_batch, patch):
             probs = tile_forward(torch.stack([vol[sl] for sl in slices]))
             # accumulate in place on the device; padded copies are skipped
-            for sl, pr in zip(slices[:n_real], probs[:n_real]):
-                acc[sl] += pr * gauss[..., None]
-                weight[sl] += gauss
+            with span("serve.accumulate"):
+                for sl, pr in zip(slices[:n_real], probs[:n_real]):
+                    acc[sl] += pr * gauss[..., None]
+                    weight[sl] += gauss
         crop = tuple(slice(0, s) for s in spatial)
         if output == "seg":
             # argmax(acc / weight) == argmax(acc): weight > 0, equal per class
@@ -235,8 +244,9 @@ def sliding_window_predict(
     for slices, n_real in _tile_batches(coords, tile_batch, patch):
         tiles = torch.from_numpy(np.stack([padded[sl] for sl in slices])).to(transfer_dtype)
         probs = tile_predictor(tiles.to(device))[:n_real].cpu().numpy()
-        for sl, pr in zip(slices, probs):
-            acc[sl] += pr * gauss[..., None]
-            weight[sl] += gauss
+        with span("serve.accumulate"):
+            for sl, pr in zip(slices, probs):
+                acc[sl] += pr * gauss[..., None]
+                weight[sl] += gauss
     acc /= weight[..., None]
     return acc[tuple(slice(0, s) for s in spatial)]

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from nextou_tpu_torch.kernels.build import check_tensors, library, ptr
+from nextou_tpu_torch.trace import count
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -248,7 +249,7 @@ def conv3d_cuda(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int]) -> torc
     bf16 or both f32, contiguous, on one CUDA device. Returns
     ``(B, Co, Do, Ho, Wo)`` in ``x.dtype``.
 
-    ``conv3d_cuda.launches`` counts the launches.
+    The counter ``k5.launches`` (``trace.py``) counts the launches.
     """
     kernel, stride, _, out_spatial = _geometry(x, w, stride)
     B, C = x.shape[:2]
@@ -271,11 +272,9 @@ def conv3d_cuda(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int]) -> torc
         )
     if rc != 0:
         raise RuntimeError(f"conv3d_cuda: launch failed with CUDA error {rc}")
-    conv3d_cuda.launches += 1
+    count("k5.launches")
     return out
 
-
-conv3d_cuda.launches = 0
 
 
 class Conv3dKernel(torch.autograd.Function):

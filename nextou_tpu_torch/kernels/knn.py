@@ -25,7 +25,8 @@ each, its plain PyTorch version:
 goes to the plain version (autograd differentiates it by itself), a CUDA
 tensor to K1, or to K3/K4 when a gradient is needed, or raises. There is no
 fallback from a kernel to a plain version. Each wrapper counts its launches
-in ``.launches``.
+in ``trace.py``'s counters: ``k1.launches``, ``k2.launches``, ``k3.launches``
+and ``k4.launches``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from nextou_tpu_torch.core.graph import (
 from nextou_tpu_torch.kernels.build import check_tensors as _check
 from nextou_tpu_torch.kernels.build import library
 from nextou_tpu_torch.kernels.build import ptr as _ptr
+from nextou_tpu_torch.trace import count
 
 K_MAX = 32  # the kernels keep the running top-k in one warp's lanes
 
@@ -156,7 +158,7 @@ def knn_max_cuda(
     and raw values ``yv (B, M, C)``, all three bf16 or all three f32, and an
     optional ``(N, M)`` f32 bias. Returns ``(B, N, C)`` f32.
 
-    ``knn_max_cuda.launches`` counts the launches.
+    The counter ``k1.launches`` counts the launches.
     """
     B, N, C = xn.shape
     M = yn.shape[1]
@@ -176,11 +178,9 @@ def knn_max_cuda(
         )
     if rc != 0:
         raise RuntimeError(f"knn_max_cuda: launch failed with CUDA error {rc}")
-    knn_max_cuda.launches += 1
+    count("k1.launches")
     return out
 
-
-knn_max_cuda.launches = 0
 
 
 def knn_max_idx_cuda(
@@ -195,7 +195,7 @@ def knn_max_idx_cuda(
     optional ``(N, M)`` f32 bias. Returns the max ``(B, N, C)`` f32 and the
     selection ``(B, N, k)`` int32, nearest first.
 
-    ``knn_max_idx_cuda.launches`` counts the launches.
+    The counter ``k3.launches`` counts the launches.
     """
     B, N, C = xn.shape
     M = yn.shape[1]
@@ -216,11 +216,9 @@ def knn_max_idx_cuda(
         )
     if rc != 0:
         raise RuntimeError(f"knn_max_idx_cuda: launch failed with CUDA error {rc}")
-    knn_max_idx_cuda.launches += 1
+    count("k3.launches")
     return out, idx
 
-
-knn_max_idx_cuda.launches = 0
 
 
 def knn_indices_cuda(
@@ -230,7 +228,7 @@ def knn_indices_cuda(
     ``yn (B, M, C)`` and an optional ``(N, M)`` f32 bias. Returns the
     selection ``(B, N, k)`` int32, nearest first.
 
-    ``knn_indices_cuda.launches`` counts the launches.
+    The counter ``k2.launches`` counts the launches.
     """
     B, N, C = xn.shape
     M = yn.shape[1]
@@ -249,11 +247,9 @@ def knn_indices_cuda(
         )
     if rc != 0:
         raise RuntimeError(f"knn_indices_cuda: launch failed with CUDA error {rc}")
-    knn_indices_cuda.launches += 1
+    count("k2.launches")
     return idx
 
-
-knn_indices_cuda.launches = 0
 
 
 def kernel_plan(
@@ -308,7 +304,7 @@ def knn_max_bwd_cuda(
     fixed by ``idx`` and the plan (:func:`knn_max_bwd_plan`), so two runs
     give the same bits.
 
-    ``knn_max_bwd_cuda.launches`` counts the launches.
+    The counter ``k4.launches`` counts the launches.
     """
     B, M, C = yv.shape
     N = idx.shape[1]
@@ -332,11 +328,9 @@ def knn_max_bwd_cuda(
         )
     if rc != 0:
         raise RuntimeError(f"knn_max_bwd_cuda: launch failed with CUDA error {rc}")
-    knn_max_bwd_cuda.launches += 1
+    count("k4.launches")
     return gy
 
-
-knn_max_bwd_cuda.launches = 0
 
 
 # --- the differentiable op and the dispatcher ------------------------------------------

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from nextou_tpu_torch.losses.ce import cross_entropy_elementwise
 from nextou_tpu_torch.parallel.distributed import mean_over_ranks
+from nextou_tpu_torch.trace import span
 
 
 def _connectivity_kernel(dim: int, connectivity: int, min_thick: int) -> np.ndarray:
@@ -130,6 +131,9 @@ def ti_loss(
 ) -> torch.Tensor:
     """TI/BTI loss: critical-voxel-masked CE, space-summed, batch-meaned.
 
+    The critical map (the argmax, the dilations, the mask) is the span
+    ``loss.bti_map`` while tracing is on (``trace.py``).
+
     Args:
         logits: ``(B, *sp, C)``; target: ``(B, *sp)`` int.
         loss_mask: optional ``(B, *sp)`` bool: voxels outside it (an ignore
@@ -137,7 +141,7 @@ def ti_loss(
     """
     if not spec.interactions:
         return torch.zeros((), dtype=torch.float32, device=logits.device)
-    with torch.no_grad():
+    with torch.no_grad(), span("loss.bti_map"):
         crit = critical_voxels_map(torch.argmax(logits, dim=-1), spec)
         if loss_mask is not None:
             crit = crit * loss_mask.to(crit.dtype)

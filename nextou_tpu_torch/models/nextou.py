@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from nextou_tpu_torch import trace
 from nextou_tpu_torch.core.pos_embed import relative_pos_bias
 from nextou_tpu_torch.models.spec import GNNBlockSpec, ModelSpec
 from nextou_tpu_torch.nn.conv_blocks import StackedConvBlocks, StackedResidualBlocks, conv
@@ -57,11 +58,14 @@ TableFn = Callable[[int, int, int], torch.Tensor]
 
 class GNNBlocks(nn.Module):
     """Upstream ``{Pool,Swin}GNNBlocks`` with one [Grapher, FFN] pair:
-    ``blocks.0.0`` and ``blocks.0.1``. Channels-last."""
+    ``blocks.0.0`` and ``blocks.0.1``. Channels-last. While tracing is on
+    (``trace.py``) its forward, recompute and backward are the span
+    ``span_name``."""
 
     def __init__(self, b: GNNBlockSpec, channels: int, img_shape, spec: ModelSpec,
-                 table: TableFn, generator: torch.Generator, device=None):
+                 table: TableFn, generator: torch.Generator, device, span_name: str):
         super().__init__()
+        self.span_name = span_name
         common = dict(k=b.k, dilation=b.dilation, stochastic=spec.stochastic,
                       epsilon=spec.epsilon, groups=spec.groups, act_name=spec.act,
                       bias=spec.use_bias, drop_path=b.drop_path,
@@ -85,6 +89,8 @@ class GNNBlocks(nn.Module):
         self.blocks = nn.Sequential(nn.Sequential(grapher, ffn))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if trace.on():
+            return trace.block(self.span_name, self.blocks, x)
         return self.blocks(x)
 
 
@@ -99,7 +105,7 @@ class HybridStage(nn.Sequential):
         return x.movedim(-1, 1).contiguous()
 
 
-def _stage(n_conv, cin, cout, kernel, stride, gnn, img_shape, spec, table,
+def _stage(name, n_conv, cin, cout, kernel, stride, gnn, img_shape, spec, table,
            generator, conv_kernel, device, residual=False):
     blocks = StackedResidualBlocks if residual else StackedConvBlocks
     convs = blocks(
@@ -109,7 +115,8 @@ def _stage(n_conv, cin, cout, kernel, stride, gnn, img_shape, spec, table,
     if not gnn:
         return convs
     return HybridStage(convs, *[
-        GNNBlocks(b, cout, img_shape, spec, table, generator, device) for b in gnn
+        GNNBlocks(b, cout, img_shape, spec, table, generator, device, f"gnn.{name}.{i}")
+        for i, b in enumerate(gnn)
     ])
 
 
@@ -187,9 +194,9 @@ class Encoder(nn.Module):
                 device=device,
             )
             cin = spec.stem_features
-        for st in spec.encoder:
+        for i, st in enumerate(spec.encoder):
             stages.append(nn.Sequential(_stage(
-                st.n_conv, cin, st.features, st.kernel_size, st.stride, st.gnn,
+                f"enc{i}", st.n_conv, cin, st.features, st.kernel_size, st.stride, st.gnn,
                 st.img_shape, spec, table, generator, conv_kernel, device, st.residual,
             )))
             cin = st.features
@@ -216,13 +223,13 @@ class Decoder(nn.Module):
         d = spec.spatial_dims
         stages, transp, heads = [], [], []
         cin = spec.encoder[-1].features
-        for st in spec.decoder:
+        for i, st in enumerate(spec.decoder):
             transp.append(_CONV_T[d](
                 cin, st.features, st.transp_stride, st.transp_stride,
                 bias=spec.use_bias, device=device,
             ))
             stages.append(_stage(
-                st.n_conv, 2 * st.features, st.features, st.kernel_size,
+                f"dec{i}", st.n_conv, 2 * st.features, st.features, st.kernel_size,
                 (1,) * d, st.gnn, st.img_shape, spec, table, generator, conv_kernel, device,
             ))
             heads.append(_CONV[d](st.features, spec.num_classes, 1, device=device))

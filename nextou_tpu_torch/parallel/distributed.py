@@ -20,8 +20,9 @@ the contract::
 The backend follows from the devices: NCCL where every local rank has a
 card of its own, gloo on the CPU or where ranks share a card. Only
 ``all_reduce``, ``broadcast`` and ``barrier`` are used: gloo does these on
-CUDA tensors too. :func:`all_reduce` counts its calls (``all_reduce.calls``);
-without a process group of more than one rank no collective is called.
+CUDA tensors too. :func:`all_reduce` counts its calls in ``trace.py``'s
+counter ``all_reduce.calls``; without a process group of more than one rank
+no collective is called.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import os
 
 import torch
 import torch.distributed as dist
+
+from nextou_tpu_torch.trace import count
 
 
 def launched() -> bool:
@@ -107,12 +110,10 @@ def barrier() -> None:
 
 def all_reduce(t: torch.Tensor) -> torch.Tensor:
     """Sum ``t`` over the ranks, in place; returns ``t``."""
-    all_reduce.calls += 1
+    count("all_reduce.calls")
     dist.all_reduce(t)
     return t
 
-
-all_reduce.calls = 0
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -66,6 +66,7 @@ from nextou_tpu_torch.parallel.mesh import local_devices, replicate_to
 from nextou_tpu_torch.paths import resolve_preprocessed, resolve_raw
 from nextou_tpu_torch.postprocess import apply_postprocessing
 from nextou_tpu_torch.plans.loader import PlansManager, load_dataset_json
+from nextou_tpu_torch.trace import span
 
 # the seven public NexToU trainer names and nnUNetTrainer (the network the
 # plans name); the _NoMirroring ones predict without mirror TTA (upstream
@@ -195,7 +196,8 @@ def build_predictor(
     C_in) * 4`` bytes fit ``ACC_BUDGET_BYTES``, and live in host memory above
     it (``nextou_tpu/predict.py::build_predictor``); ``predict.path`` names
     the path its last call took. A 2d network over a 3d case predicts slice
-    by slice along the leading axis."""
+    by slice along the leading axis. While tracing is on (``trace.py``) a
+    call is the unit ``serve.case``, host array in to host array out."""
     spec = model.spec
     device = next(model.parameters()).device
     patch, ncls = tuple(spec.patch_size), spec.num_classes
@@ -212,10 +214,14 @@ def build_predictor(
     seg_dtype = np.uint8 if ncls <= 255 else np.int16
 
     def predict(data: np.ndarray) -> np.ndarray:
+        with span("serve.case", unit=True):
+            return predict_case(data)
+
+    def predict_case(data: np.ndarray) -> np.ndarray:
         if data.ndim - 1 == len(patch) + 1:
             # a 2d configuration on a volumetric case: slice by slice along
             # the leading axis (nnU-Net's 2d inference over 3d data)
-            return np.stack([predict(data[z]) for z in range(data.shape[0])])
+            return np.stack([predict_case(data[z]) for z in range(data.shape[0])])
         acc_bytes = int(np.prod(data.shape[:-1])) * (ncls + 1 + data.shape[-1]) * 4
         if acc_bytes <= ACC_BUDGET_BYTES:
             predict.path = DEVICE_ACCUMULATION

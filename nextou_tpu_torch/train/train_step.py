@@ -13,6 +13,10 @@ global batch's, and the gradients are averaged over the ranks before the
 update, so that the step is the one-process step at the global batch. The
 eval step's ``tp``/``fp``/``fn`` stay this rank's: the trainer sums them
 over the ranks once per epoch.
+
+While tracing is on (``trace.py``) a train step is the unit ``train.step``
+with the spans ``train.upload``, ``train.augment``, ``train.forward``,
+``train.loss``, ``train.backward`` and ``train.optimizer``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from nextou_tpu_torch.losses import (
     region_targets,
 )
 from nextou_tpu_torch.parallel.distributed import average_gradients, world_size
+from nextou_tpu_torch.trace import span
 from nextou_tpu_torch.train.optimizer import SGD
 from nextou_tpu_torch.train.state import TrainState
 
@@ -38,27 +43,31 @@ from nextou_tpu_torch.train.state import TrainState
 def _batch_on(model: nn.Module, batch: dict,
               augment: AugmentConfig | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     device = next(model.parameters()).device
-    # asynchronous where the loader pinned the batch (device augmentation)
-    data = torch.as_tensor(batch["data"]).to(device, non_blocking=True)
-    seg = torch.as_tensor(batch["seg"]).to(device, non_blocking=True)
+    with span("train.upload"):
+        # asynchronous where the loader pinned the batch (device augmentation)
+        data = torch.as_tensor(batch["data"]).to(device, non_blocking=True)
+        seg = torch.as_tensor(batch["seg"]).to(device, non_blocking=True)
     if augment is not None:
         if "plans" not in batch:
             raise ValueError("this train step augments on the device: its batches come from "
                              "PatchDataLoader(device_augment=True), with 'plans'")
-        # (B, C, *initial) -> (B, C, *final), then channels-last as the host
-        # loader delivers it
-        data, seg, _ = device_augment_batch(data, seg, batch["plans"], augment)
-        data = torch.movedim(data, 1, -1).contiguous()
+        with span("train.augment"):
+            # (B, C, *initial) -> (B, C, *final), then channels-last as the
+            # host loader delivers it
+            data, seg, _ = device_augment_batch(data, seg, batch["plans"], augment)
+            data = torch.movedim(data, 1, -1).contiguous()
     return data, seg.long()
 
 
 def _loss(model, data, seg, loss_spec, ds_weights) -> tuple[torch.Tensor, list]:
-    outs = model(data)
+    with span("train.forward"):
+        outs = model(data)
     if not isinstance(outs, (list, tuple)):
         outs = [outs]
-    loss = deep_supervised_loss(
-        outs, seg, lambda o, t: dc_ce_ti_loss(o, t, loss_spec), ds_weights
-    )
+    with span("train.loss"):
+        loss = deep_supervised_loss(
+            outs, seg, lambda o, t: dc_ce_ti_loss(o, t, loss_spec), ds_weights
+        )
     return loss, outs
 
 
@@ -82,23 +91,27 @@ def make_train_step(
     """
 
     def train_step(state: TrainState, batch: dict):
-        model.train()
-        data, seg = _batch_on(model, batch, augment)
-        params = list(model.parameters())
-        loss, _ = _loss(model, data, seg, loss_spec, ds_weights)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        # a head whose output has weight 0 gets no gradient: zeros, so that
-        # weight decay and momentum still see it
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        if world_size() > 1:
-            # each rank's loss is the global loss, so its gradient is the
-            # world size times its share: the mean over the ranks is the
-            # one-process gradient at the global batch, the same bits on
-            # every rank before the clip and the update
-            grads = average_gradients(grads)
-        norm = optimizer.update(grads, state.momentum, params, state.step)
-        state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": norm}
+        with span("train.step", unit=True):
+            model.train()
+            data, seg = _batch_on(model, batch, augment)
+            params = list(model.parameters())
+            loss, _ = _loss(model, data, seg, loss_spec, ds_weights)
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                # a head whose output has weight 0 gets no gradient: zeros, so
+                # that weight decay and momentum still see it
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params, grads)]
+            if world_size() > 1:
+                # each rank's loss is the global loss, so its gradient is the
+                # world size times its share: the mean over the ranks is the
+                # one-process gradient at the global batch, the same bits on
+                # every rank before the clip and the update
+                grads = average_gradients(grads)
+            with span("train.optimizer"):
+                norm = optimizer.update(grads, state.momentum, params, state.step)
+            state.step += 1
+            return state, {"loss": loss.detach(), "grad_norm": norm}
 
     return train_step
 

@@ -72,6 +72,7 @@ from nextou_tpu_torch.parallel import (
 )
 from nextou_tpu_torch.plans import PlansManager
 from nextou_tpu_torch.predict import compute_dtype
+from nextou_tpu_torch.trace import counters
 from nextou_tpu_torch.train.checkpoint import load_checkpoint, restore_pretrained, save_checkpoint
 from nextou_tpu_torch.train.optimizer import make_optimizer, poly_lr
 from nextou_tpu_torch.train.registry import register_trainer
@@ -376,7 +377,8 @@ class NexToUTrainer:
         """A ``torch.profiler`` trace of ``n_steps`` train steps, written as
         ``trace_dir/trace.json`` (Chrome trace format), the counterpart of
         the JAX trainer's ``jax.profiler`` trace. The first step runs
-        outside the trace."""
+        outside the trace. The trace carries the program's spans
+        (``trace.py``: ``train.step`` and its phases, ``gnn.*``)."""
         from torch.profiler import ProfilerActivity, profile
 
         self.initialize()
@@ -420,7 +422,7 @@ class NexToUTrainer:
                 t0 = time.perf_counter()
                 # the losses add up on the device: nothing is read per step
                 loss_sum, first_loss, wait = zero(), None, 0.0
-                reduces = all_reduce.calls
+                reduces = counters().get("all_reduce.calls", 0)
                 for _ in range(self.num_iterations_per_epoch):
                     t = time.perf_counter()
                     batch = next(train_it)
@@ -432,7 +434,7 @@ class NexToUTrainer:
                 # each rank's loss is the global batch's: the same on every rank
                 train_loss = loss_sum.item() / self.num_iterations_per_epoch
                 train_s = time.perf_counter() - t0
-                reduces = all_reduce.calls - reduces
+                reduces = counters().get("all_reduce.calls", 0) - reduces
 
                 val_sum, stats = zero(), None
                 for _ in range(self.num_val_iterations_per_epoch):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from nextou_tpu_torch import trace
 from nextou_tpu_torch.core.graph import dense_knn, dense_knn_reference, l2_normalize
 from nextou_tpu_torch.kernels import knn as port_knn
 from nextou_tpu_torch.kernels.knn import (
@@ -31,6 +32,12 @@ from nextou_tpu_torch.kernels.knn import (
     knn_max_neighbors,
     knn_max_neighbors_reference,
 )
+
+
+def _launches(kernel: str) -> int:
+    """The launches of ``kernel`` (``k1`` ... ``k5``) so far, from the port's
+    counters."""
+    return trace.counters().get(f"{kernel}.launches", 0)
 
 
 def _random(shape, seed):
@@ -114,10 +121,10 @@ def test_k1_matches_plain_on_gpu(dtype):
             ]
             xt = args[0].to(dtype)
             yt = None if args[1] is None else args[1].to(dtype)
-            before = port_knn.knn_max_cuda.launches
+            before = _launches("k1")
             got = knn_max_neighbors(xt, k, yt, args[2])
             torch.cuda.synchronize()
-            assert port_knn.knn_max_cuda.launches == before + 1
+            assert _launches("k1") == before + 1
             want = knn_max_neighbors_reference(xt, k, yt, args[2]).to(dtype)
             assert got.dtype == dtype and got.shape == want.shape
             if kind == "tie_built":  # exact arithmetic: identical selections
@@ -150,12 +157,12 @@ def test_k2_k3_k4_match_plain_on_gpu(values):
             yn = xn if y is None else l2_normalize(y).contiguous()
             yv = (x if y is None else y).to(values).contiguous()
             g = torch.from_numpy(np.random.default_rng(n).standard_normal(x.shape)).float().to(dev)
-            counts = [f.launches for f in (knn_indices_cuda, knn_max_idx_cuda, knn_max_bwd_cuda)]
+            counts = [_launches(k) for k in ("k2", "k3", "k4")]
             idx2 = knn_indices_cuda(xn, yn, rel, k)
             maxv, idx3 = knn_max_idx_cuda(xn, yn, yv, rel, k)
             gy = knn_max_bwd_cuda(yv, idx3, maxv, g, k)
             torch.cuda.synchronize()
-            assert [f.launches for f in (knn_indices_cuda, knn_max_idx_cuda, knn_max_bwd_cuda)] == [
+            assert [_launches(k) for k in ("k2", "k3", "k4")] == [
                 v + 1 for v in counts]
             assert torch.equal(idx2, idx3)
             want_max, want_idx = knn_max_idx_reference(xn, yn, yv, rel, k)
@@ -258,11 +265,11 @@ def test_train_dispatch_on_gpu():
         for d in (dev, torch.device("cpu")):
             xt, yt, relt, gt = _on(d, x, y, rel, g)
             leaf = (xt if yt is None else yt).requires_grad_()
-            before = port_knn.knn_max_idx_cuda.launches, port_knn.knn_max_bwd_cuda.launches
+            before = _launches("k3"), _launches("k4")
             out = knn_max_neighbors(xt, k, yt, relt, train=True)
             (out * gt).sum().backward()
             if d.type == "cuda":  # a tensor that needs a gradient goes to K3 and K4
-                assert (port_knn.knn_max_idx_cuda.launches, port_knn.knn_max_bwd_cuda.launches) == (
+                assert (_launches("k3"), _launches("k4")) == (
                     before[0] + 1, before[1] + 1)
             grads[d.type] = out.detach().cpu(), leaf.grad.cpu()
         rows_off = (grads["cuda"][0] != grads["cpu"][0]).any(-1)
@@ -272,9 +279,9 @@ def test_train_dispatch_on_gpu():
         # dense_knn on a CUDA tensor is K2
         x_dev, rel_dev = _on(dev, x, rel if self_graph else None)
         xn = l2_normalize(x_dev)
-        before = knn_indices_cuda.launches
+        before = _launches("k2")
         idx = dense_knn(xn, k, relative_pos=rel_dev)
-        assert knn_indices_cuda.launches == before + 1 and idx.dtype == torch.int64
+        assert _launches("k2") == before + 1 and idx.dtype == torch.int64
         want = dense_knn_reference(xn, k, relative_pos=rel_dev)
         assert (idx.sort(-1).values != want.sort(-1).values).any(-1).float().mean() <= 1e-3
     with pytest.raises(NotImplementedError):
@@ -449,17 +456,17 @@ def test_split_product_accuracy_through_t1_on_gpu():
 def test_k5_matches_plain_on_gpu(dtype):
     if not torch.cuda.is_available():
         pytest.skip("K5 is CUDA code: needs a CUDA card")
-    from nextou_tpu_torch.kernels.conv import conv3d, conv3d_cuda, conv3d_reference
+    from nextou_tpu_torch.kernels.conv import conv3d, conv3d_reference
     from nextou_tpu_torch.tools.exp_conv_v2 import CHECK_CASES, library_conv, seeded_case
 
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     for B, spatial, C, Co, kernel, stride in CHECK_CASES:
         x, w = seeded_case(B, spatial, C, Co, kernel, dtype, dev)
-        before = conv3d_cuda.launches
+        before = _launches("k5")
         got = conv3d(x, w, stride)
         torch.cuda.synchronize()
-        assert conv3d_cuda.launches == before + 1
+        assert _launches("k5") == before + 1
         want = conv3d_reference(x, w, stride)
         assert got.dtype == dtype and got.shape == want.shape
         # f32: the order of an f32 sum over at most 27 * 35 terms of size
@@ -685,9 +692,9 @@ def test_host_accumulation_matches_the_device_path_on_gpu(monkeypatch):
     for budget in (predict.ACC_BUDGET_BYTES, 1 << 20):
         monkeypatch.setattr(predict, "ACC_BUDGET_BYTES", budget)
         pred = predict.build_predictor(model, (0, 1, 2), tile_batch=2)
-        before = port_knn.knn_max_cuda.launches
+        before = _launches("k1")
         probs = pred(data)
-        out[pred.path] = probs, port_knn.knn_max_cuda.launches - before
+        out[pred.path] = probs, _launches("k1") - before
     (dev_p, dev_k1), (host_p, host_k1) = (out[predict.DEVICE_ACCUMULATION],
                                           out[predict.HOST_ACCUMULATION])
     assert dev_k1 == host_k1 == 14 * 2 * 4  # 14 graphers, 2 tile batches, 4 mirror pairs
@@ -707,17 +714,17 @@ def test_k5_one_input_channel_matches_plain_on_gpu(dtype):
     (f32 within 1e-4, bf16 within one rounding of the output)."""
     if not torch.cuda.is_available():
         pytest.skip("K5 is CUDA code: needs a CUDA card")
-    from nextou_tpu_torch.kernels.conv import conv3d, conv3d_cuda, conv3d_reference
+    from nextou_tpu_torch.kernels.conv import conv3d, conv3d_reference
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     for B, spatial, Co, stride in ((2, (6, 12, 48), 32, (1, 1, 1)), (1, (5, 14, 34), 32, (2, 2, 2)),
                                    (1, (4, 8, 64), 64, (1, 2, 2))):
         x = torch.randn(B, 1, *spatial, generator=gen, device="cuda").to(dtype)
         w = (torch.randn(Co, 1, 3, 3, 3, generator=gen, device="cuda") * 0.2).to(dtype)
-        before = conv3d_cuda.launches
+        before = _launches("k5")
         got = conv3d(x, w, stride)
         torch.cuda.synchronize()
-        assert conv3d_cuda.launches == before + 1
+        assert _launches("k5") == before + 1
         want = conv3d_reference(x, w, stride)
         tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * want.float().abs() + 1e-3
         assert ((got.float() - want.float()).abs() <= tol).all(), (B, spatial, stride)
@@ -732,7 +739,6 @@ def test_plain_and_residual_unets_match_the_cpu_on_gpu(arch):
     in eval and in train mode."""
     if not torch.cuda.is_available():
         pytest.skip("K5 is CUDA code: needs a CUDA card")
-    from nextou_tpu_torch.kernels.conv import conv3d_cuda
     from nextou_tpu_torch.models import (
         PlainConvUNet, ResidualEncoderUNet, build_plain_unet_spec,
         build_residual_encoder_unet_spec,
@@ -754,11 +760,11 @@ def test_plain_and_residual_unets_match_the_cpu_on_gpu(arch):
     card = cls(spec, conv_kernel="1", device="cuda")
     card.load_state_dict(cpu.state_dict())
     for mode in ("eval", "train"):
-        before = conv3d_cuda.launches
+        before = _launches("k5")
         with torch.no_grad():
             want = getattr(cpu, mode)()(x)
             got = getattr(card, mode)()(x.cuda()).cpu()
-        assert conv3d_cuda.launches > before
+        assert _launches("k5") > before
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
 
 
@@ -781,10 +787,10 @@ def test_grapher_matches_the_cpu_on_gpu():
         table = torch.tensor(relative_pos_bias(C, n, m, 3), device=dev)[None]
         g = init_weights(Grapher(C, table, dims=3, k=9, reduce_ratio=r, groups=6,
                                  act_name="prelu", device=dev), seed=2)
-        before = port_knn.knn_max_cuda.launches
+        before = _launches("k1")
         with torch.no_grad():
             out.append(g.eval()(x.to(dev)).cpu())
-    assert port_knn.knn_max_cuda.launches == before + 1
+    assert _launches("k1") == before + 1
     off = (out[1] - out[0]).abs() > 2e-3 + 1e-3 * out[0].abs()
     assert off.float().mean().item() <= 1e-3
 
@@ -859,9 +865,9 @@ def test_one_rank_batch_norm_is_the_fused_path_on_gpu(tmp_path, monkeypatch):
     assert parallel.initialize_distributed("cuda", f"file://{tmp_path}/store") == dev
     try:
         assert dist.get_backend() == "nccl" and parallel.world_size() == 1
-        calls = parallel.all_reduce.calls
+        calls = trace.counters().get("all_reduce.calls", 0)
         got = _batch_norm_on(dev, x, g)
-        assert parallel.all_reduce.calls == calls
+        assert trace.counters().get("all_reduce.calls", 0) == calls
     finally:
         dist.destroy_process_group()
     for a, b in zip(got, want):
@@ -928,9 +934,9 @@ def test_imported_upstream_checkpoint_serves_the_same_seg_on_gpu(tmp_path):
     import_torch_checkpoint.main([upstream, folder, config, "-o", imported])
     segs = []
     for model in (run, imported):
-        port_knn.knn_max_cuda.launches = 0
+        before = _launches("k1")
         predict.main([model, folder, config, "-o", f"{model}_pred"])
-        assert port_knn.knn_max_cuda.launches > 0
+        assert _launches("k1") > before
         with np.load(f"{model}_pred/case_000.npz") as z:
             segs.append(z["seg"])
     assert segs[0].shape == (16, 128, 112)
